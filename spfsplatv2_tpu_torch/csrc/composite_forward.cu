@@ -20,8 +20,11 @@
 // KB a batch), then every thread walks the batch in order.  The block
 // exits once no pixel is live (__syncthreads_count).
 //
-// Precision: FP32 FMA and expf (no --use_fast_math, no __expf).  A lower
-// precision exponent flips entries across the alpha cut-offs.  Coordinates
+// Precision: the alpha and transmittance arithmetic lives in
+// composite_common.cuh, shared with K2 (composite_backward.cu), in explicit
+// round-to-nearest FP32 with expf (no --use_fast_math, no __expf): K2 must
+// re-take K1's skip and stop decisions bit for bit, and a lower precision
+// exponent flips entries across the alpha cut-offs.  Coordinates
 // are tile-local (mean minus tile origin, as _pixel_grid explains) so
 // dx, dy stay small.
 //
@@ -36,14 +39,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kFields = 10;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using namespace spf;
 
 __global__ void __launch_bounds__(kPix)
 composite_forward_kernel(const float* __restrict__ packed,
@@ -51,8 +51,7 @@ composite_forward_kernel(const float* __restrict__ packed,
                          const int32_t* __restrict__ counts,
                          const int32_t* __restrict__ starts, int tiles_x,
                          float* __restrict__ out) {
-  __shared__ float s_mx[kPix], s_my[kPix], s_ca[kPix], s_cb[kPix],
-      s_cc[kPix], s_r[kPix], s_g[kPix], s_b[kPix], s_op[kPix], s_z[kPix];
+  __shared__ Staged<kPix> s;
 
   const int tile = blockIdx.x;
   const int p = threadIdx.x;
@@ -68,39 +67,22 @@ composite_forward_kernel(const float* __restrict__ packed,
 
   for (int base = 0; base < count; base += kPix) {
     const int n = min(kPix, count - base);
-    if (p < n) {
-      const float* row = packed + (int64_t)src[start + base + p] * kFields;
-      s_mx[p] = row[0] - ox;
-      s_my[p] = row[1] - oy;
-      s_ca[p] = row[2];
-      s_cb[p] = row[3];
-      s_cc[p] = row[4];
-      s_r[p] = row[5];
-      s_g[p] = row[6];
-      s_b[p] = row[7];
-      s_op[p] = row[8];
-      s_z[p] = row[9];
-    }
+    if (p < n) stage_entry(s, p, packed, src[start + base + p], ox, oy);
     __syncthreads();
     if (!done) {
       for (int j = 0; j < n; ++j) {
-        const float dx = px - s_mx[j];
-        const float dy = py - s_my[j];
-        const float power =
-            -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy;
-        if (power > 0.0f) continue;
-        const float alpha = fminf(kAlphaMax, s_op[j] * expf(power));
-        if (alpha < kAlphaMin) continue;
-        const float test_T = T * (1.0f - alpha);
+        float dx, dy, alpha;
+        if (!entry_alpha(s, j, px, py, &dx, &dy, &alpha)) continue;
+        const float test_T = next_T(T, alpha);
         if (test_T < kTEps) {
           done = true;
           break;
         }
         const float w = alpha * T;
-        cr += w * s_r[j];
-        cg += w * s_g[j];
-        cb += w * s_b[j];
-        depth += w * s_z[j];
+        cr += w * s.r[j];
+        cg += w * s.g[j];
+        cb += w * s.b[j];
+        depth += w * s.z[j];
         T = test_T;
       }
     }

@@ -4,14 +4,15 @@ Torch port of `spfsplatv2_tpu/evaluation/evaluator.py:evaluate_example`,
 the serving path of `python -m spfsplatv2_tpu.main mode=test`:
   * per-target encoding (the published protocol: context + ONE target per
     encoder call) or joint encoding;
+  * optional test-time pose alignment through the renderer
+    (`pose_align.align_poses`, kernel K2 on the card);
   * rendering the targets at the predicted poses with GT intrinsics;
-  * PSNR / SSIM and pose errors.
-Test-time pose alignment needs the backward compositing kernel and LPIPS
-is not ported, so `align_pose=True` and `lpips_params` raise; so do image
-and video saving.
+  * PSNR / SSIM / LPIPS and pose errors.
+Image and video saving and `use_estimated_focal` are not ported and raise.
 
-The whole path runs under `torch.no_grad()` with TF32 off for matmuls and
-cuDNN convolutions (`disable_tf32`), so float32 stays float32 on the card.
+The path runs under `torch.no_grad()` (the pose alignment enables
+autograd for itself) with TF32 off for matmuls and cuDNN convolutions
+(`disable_tf32`), so float32 stays float32 on the card.
 """
 
 from __future__ import annotations
@@ -23,20 +24,23 @@ import torch
 
 from spfsplatv2_tpu_torch.evaluation.benchmarker import Benchmarker
 from spfsplatv2_tpu_torch.evaluation.metrics import (
+    compute_lpips,
     compute_pose_error,
     compute_psnr,
     compute_ssim,
 )
+from spfsplatv2_tpu_torch.evaluation.pose_align import align_poses
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
 
 
 @dataclass
 class EvalConfig:
-    """The switches of the JAX EvalConfig that this slice reads; the pose
-    alignment's steps and rate and the output path come back with the
-    features that use them."""
+    """The fields of the JAX EvalConfig that the port reads; the output
+    path comes back with image saving."""
 
     align_pose: bool = False
+    pose_align_steps: int = 100
+    opt_lr: float = 5e-4
     save_images: bool = False
     save_video: bool = False
     per_target_encoding: bool = True
@@ -73,6 +77,7 @@ def evaluate_example(
     decoder_cfg: DecoderConfig = DecoderConfig(),
     eval_cfg: EvalConfig = EvalConfig(),
     lpips_params=None,
+    lpips_calibrated: bool = True,
     benchmarker: Optional[Benchmarker] = None,
     device: str | torch.device = "cuda",
 ) -> dict:
@@ -81,14 +86,9 @@ def evaluate_example(
     `example` holds numpy arrays or tensors: context/target "image"
     (v, h, w, 3), "intrinsics" (v, 3, 3), target "near"/"far" (v,), and
     optionally "extrinsics" (v, 4, 4) and context "overlap".
+    `lpips_params` is a `losses.lpips.LPIPS` module; its score is stored
+    as "lpips", or "lpips_uncalibrated" unless `lpips_calibrated`.
     """
-    if eval_cfg.align_pose:
-        raise NotImplementedError(
-            "align_pose needs the backward compositing kernel (K2), which "
-            "lands with the training slice"
-        )
-    if lpips_params is not None:
-        raise NotImplementedError("LPIPS is not ported yet")
     if eval_cfg.save_images or eval_cfg.save_video:
         raise NotImplementedError("image and video saving is not ported yet")
     if eval_cfg.use_estimated_focal:
@@ -110,13 +110,23 @@ def evaluate_example(
         return decode_splatting(gaussians, poses, intr, near_, far_,
                                 image_shape, decoder_cfg)
 
+    def align(gaussians, poses, intr, near_, far_, images):
+        if not eval_cfg.align_pose:
+            return poses
+        with bench.time("pose_optimize"):
+            poses, _ = align_poses(gaussians, poses, intr, near_, far_, images,
+                                   image_shape, steps=eval_cfg.pose_align_steps,
+                                   lr=eval_cfg.opt_lr, decoder_cfg=decoder_cfg)
+        return poses
+
     if eval_cfg.per_target_encoding:
         colors, poses_out, dropped = [], [], []
         for t in range(v_tgt):
             sl = slice(t, t + 1)
             with bench.time("encoder"):
                 out = encoder(ctx_img, ctx_k, tgt_img[:, sl], tgt_k[:, sl])
-            pose_t = out["extrinsics_cwt"][:, v_cxt:]
+            pose_t = align(out["gaussians"], out["extrinsics_cwt"][:, v_cxt:],
+                           tgt_k[:, sl], near[:, sl], far[:, sl], tgt_img[:, sl])
             with bench.time("decoder", num_calls=1):
                 rendered = render_targets(out["gaussians"], pose_t,
                                           tgt_k[:, sl], near[:, sl], far[:, sl])
@@ -129,7 +139,8 @@ def evaluate_example(
     else:
         with bench.time("encoder"):
             out = encoder(ctx_img, ctx_k, tgt_img, tgt_k)
-        pred_tgt_poses = out["extrinsics_cwt"][:, v_cxt:]
+        pred_tgt_poses = align(out["gaussians"], out["extrinsics_cwt"][:, v_cxt:],
+                               tgt_k, near, far, tgt_img)
         with bench.time("decoder", num_calls=v_tgt):
             rendered = render_targets(out["gaussians"], pred_tgt_poses, tgt_k,
                                       near, far)
@@ -145,6 +156,11 @@ def evaluate_example(
     gt = tgt_img[0]
     result["psnr"] = _floats(compute_psnr(gt, pred))
     result["ssim"] = _floats(compute_ssim(gt, pred))
+    if lpips_params is not None:
+        # Random VGG weights are labelled so that their scores are never
+        # read as published LPIPS numbers.
+        key = "lpips" if lpips_calibrated else "lpips_uncalibrated"
+        result[key] = _floats(compute_lpips(lpips_params, gt, pred))
     if "extrinsics" in tgt:
         rot, tr = compute_pose_error(pred_tgt_poses[0],
                                      batch1(tgt["extrinsics"])[0])

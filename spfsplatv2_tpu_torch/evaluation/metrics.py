@@ -1,6 +1,6 @@
 """Image and pose evaluation metrics (torch port of
-`spfsplatv2_tpu/evaluation/metrics.py`): PSNR, SSIM and pose errors.
-LPIPS is not ported yet."""
+`spfsplatv2_tpu/evaluation/metrics.py`): PSNR, SSIM, LPIPS and pose
+errors."""
 
 from __future__ import annotations
 
@@ -28,3 +28,11 @@ def compute_pose_error(predicted_c2w: torch.Tensor, gt_c2w: torch.Tensor):
     rot = se3.rotation_angle_deg(predicted_c2w[..., :3, :3], gt_c2w[..., :3, :3])
     tr = se3.translation_angle_deg(predicted_c2w[..., :3, 3], gt_c2w[..., :3, 3])
     return rot, tr
+
+
+def compute_lpips(lpips, ground_truth: torch.Tensor,
+                  predicted: torch.Tensor) -> torch.Tensor:
+    """(batch, h, w, 3) in [0, 1] -> (batch,) LPIPS of `lpips` (a
+    `losses.lpips.LPIPS`)."""
+    return lpips(torch.clamp(predicted, 0, 1) * 2 - 1,
+                 torch.clamp(ground_truth, 0, 1) * 2 - 1)

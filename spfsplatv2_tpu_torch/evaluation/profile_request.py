@@ -1,55 +1,98 @@
-"""Profile one full-width serving request on the card with torch.profiler.
+"""Profile one step of a full-width path on the card with torch.profiler.
 
-    python -m spfsplatv2_tpu_torch.evaluation.profile_request
+    python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train]
 
 Builds the flagship encoder from a seeded random init (as chip_smoke.py
-does), serves one warm-up request, then one request under
-`torch.profiler` and prints one JSON line: the request's wall time, the
-device's busy time and share (the sum of kernel times over the wall
-time; one stream, so kernels do not overlap), the number of kernel
-launches, and the kernels that took the most device time.
+does), runs the path once to warm up, then once under `torch.profiler`,
+and prints one JSON line: the wall time, the device's busy time and share
+(the sum of kernel times over the wall time; one stream, so kernels do
+not overlap), the number of kernel launches, and the kernels that took
+the most device time.  The paths:
+  * serving: one request (2 context views + 1 target at 256^2);
+  * align: one request with test-time pose alignment, 10 steps;
+  * train: one `make_train_step` step at the flagship batch (b = 16,
+    seeded LPIPS, the re10k optimizer recipe).
 """
 
 from __future__ import annotations
 
 import json
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from spfsplatv2_tpu_torch.evaluation.evaluator import evaluate_example
+from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
 from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
+
+ALIGN_STEPS = 10
+
+
+def _views(gen, b, offsets, hw, device) -> dict:
+    """b scenes of random pixels, one view per offset along x, centred
+    identity intrinsics."""
+    v = len(offsets)
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], device=device)
+    c2w = torch.eye(4, device=device).repeat(b, v, 1, 1)
+    c2w[..., 0, 3] = torch.tensor(offsets, device=device)
+    return {"image": torch.rand(b, v, hw, hw, 3, generator=gen, device=device),
+            "intrinsics": k.expand(b, v, 3, 3).clone(), "extrinsics": c2w,
+            "near": torch.ones((b, v), device=device),
+            "far": torch.full((b, v), 100.0, device=device)}
 
 
 def synthetic_request(seed: int, hw: int, device: torch.device) -> dict:
-    """2 context views + 1 target of random pixels, identity intrinsics
-    centred, poses shifted along x."""
+    """2 context views + 1 target, poses shifted along x."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], device=device)
-
-    def view(offset):
-        c2w = torch.eye(4, device=device)
-        c2w[0, 3] = offset
-        return {"image": torch.rand(1, hw, hw, 3, generator=gen, device=device),
-                "intrinsics": k[None].clone(), "extrinsics": c2w[None],
-                "near": torch.ones(1, device=device),
-                "far": torch.full((1,), 100.0, device=device)}
-
-    c0, c1, tgt = view(0.0), view(0.2), view(0.1)
-    ctx = {key: torch.cat([c0[key], c1[key]]) for key in c0}
+    ctx = {k: v[0] for k, v in _views(gen, 1, [0.0, 0.2], hw, device).items()}
+    tgt = {k: v[0] for k, v in _views(gen, 1, [0.1], hw, device).items()}
+    ctx["overlap"] = 0.5
     return {"scene": f"request_{seed}", "context": ctx, "target": tgt}
 
 
-def main(hw: int = 256, seed: int = 0) -> dict:
+def synthetic_batch(seed: int, b: int, hw: int, device: torch.device) -> dict:
+    """A training batch of b scenes of 2 context views + 1 target."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {"context": _views(gen, b, [0.0, 0.2], hw, device),
+            "target": _views(gen, b, [0.1], hw, device)}
+
+
+def _runner(path: str, encoder, hw: int, seed: int, dev):
+    if path == "serving":
+        request = synthetic_request(seed + 1, hw, dev)
+        return lambda: evaluate_example(encoder, request, (hw, hw), device=dev)
+    if path == "align":
+        request = synthetic_request(seed + 1, hw, dev)
+        cfg = EvalConfig(align_pose=True, pose_align_steps=ALIGN_STEPS)
+        return lambda: evaluate_example(encoder, request, (hw, hw),
+                                        eval_cfg=cfg, device=dev)
+    if path == "train":
+        from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+        from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
+        from spfsplatv2_tpu_torch.training.step import (
+            LossConfig,
+            init_train_state,
+            make_train_step,
+        )
+
+        optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
+        step = make_train_step(encoder, optimizer, (hw, hw), lpips=build_lpips(
+            seed, dev), loss_cfg=LossConfig())
+        state = init_train_state(encoder, optimizer)
+        batch = synthetic_batch(seed + 1, 16, hw, dev)
+        return lambda: step(state, batch)
+    raise ValueError(f"unknown path {path!r}: serving, align or train")
+
+
+def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
     dev = torch.device("cuda")
     encoder = build_encoder(SPFSplatV2Config(), seed=seed, device=dev)
-    evaluate_example(encoder, synthetic_request(1, hw, dev), (hw, hw),
-                     device=dev)
-    request = synthetic_request(2, hw, dev)
+    run = _runner(path, encoder, hw, seed, dev)
+    run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluate_example(encoder, request, (hw, hw), device=dev)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -61,8 +104,9 @@ def main(hw: int = 256, seed: int = 0) -> dict:
     top = sorted(((sum(v), len(v), k) for k, v in by_name.items()),
                  reverse=True)[:15]
     result = {
+        "path": path,
         "device": torch.cuda.get_device_name(0),
-        "request_wall_ms_under_profiler": wall_ms,
+        "wall_ms_under_profiler": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches": len(kernels),
@@ -73,4 +117,4 @@ def main(hw: int = 256, seed: int = 0) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

@@ -1,8 +1,8 @@
 """SE(3)/SO(3) algebra and camera-pose utilities (torch port).
 
 Counterpart of `spfsplatv2_tpu/geometry/se3.py`, restricted to the
-functions the inference path uses.  Extrinsics are camera-to-world (c2w)
-4x4 matrices; quaternions are (w, x, y, z).
+functions the serving and training paths use.  Extrinsics are
+camera-to-world (c2w) 4x4 matrices; quaternions are (w, x, y, z).
 """
 
 from __future__ import annotations
@@ -35,6 +35,55 @@ def rotation_6d_to_matrix(d6: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
+    zeros = torch.zeros_like(v[..., 0])
+    rows = torch.stack(
+        [zeros, -v[..., 2], v[..., 1],
+         v[..., 2], zeros, -v[..., 0],
+         -v[..., 1], v[..., 0], zeros],
+        dim=-1,
+    )
+    return rows.reshape(*v.shape[:-1], 3, 3)
+
+
+def so3_exp(theta: torch.Tensor) -> torch.Tensor:
+    """Rodrigues exponential map: (..., 3) axis-angle -> (..., 3, 3).
+
+    Differentiable at theta = 0: the double `where` on the squared norm
+    keeps the sqrt out of the gradient path there, which is where pose
+    alignment starts.
+    """
+    sq = torch.sum(theta**2, dim=-1, keepdim=True)[..., None]
+    small = sq < 1e-10
+    one = torch.ones_like(sq)
+    safe_sq = torch.where(small, one, sq)
+    angle = torch.sqrt(safe_sq)
+    w = skew(theta)
+    eye = torch.eye(3, dtype=theta.dtype, device=theta.device).expand(w.shape)
+    a = torch.where(small, one, torch.sin(angle) / angle)
+    b = torch.where(small, 0.5 * one, (1 - torch.cos(angle)) / safe_sq)
+    return eye + a * w + b * (w @ w)
+
+
+def se3_exp(tau: torch.Tensor) -> torch.Tensor:
+    """(..., 6) [rho, theta] -> (..., 4, 4) SE3 matrix (differentiable at 0)."""
+    rho, theta = tau[..., :3], tau[..., 3:]
+    sq = torch.sum(theta**2, dim=-1, keepdim=True)[..., None]
+    small = sq < 1e-10
+    one = torch.ones_like(sq)
+    safe_sq = torch.where(small, one, sq)
+    angle = torch.sqrt(safe_sq)
+    w = skew(theta)
+    eye = torch.eye(3, dtype=tau.dtype, device=tau.device).expand(w.shape)
+    b = torch.where(small, 0.5 * one, (1 - torch.cos(angle)) / safe_sq)
+    c = torch.where(small, one / 6.0,
+                    (angle - torch.sin(angle)) / (safe_sq * angle))
+    v = eye + b * w + c * (w @ w)
+    t = (v @ rho[..., None])[..., 0]
+    return pack_rt(so3_exp(theta), t)
+
+
 def pack_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation -> (..., 4, 4)."""
     top = torch.cat([r, t[..., None]], dim=-1)
@@ -59,6 +108,20 @@ def pose_encoding_to_matrix(enc: torch.Tensor) -> torch.Tensor:
 def camera_normalization(pivot: torch.Tensor, poses: torch.Tensor) -> torch.Tensor:
     """Re-express `poses` so that `pivot` becomes identity."""
     return inverse_se3(pivot) @ poses
+
+
+def project_to_cam(pts3d: torch.Tensor, c2w: torch.Tensor,
+                   intrinsics: torch.Tensor) -> torch.Tensor:
+    """World points (..., n, 3) into a camera with PIXEL intrinsics
+    (..., 3, 3): pixel coordinates (..., n, 2), z clamped at 1e-6."""
+    w2c = inverse_se3(c2w)
+    cam = (
+        torch.einsum("...ij,...nj->...ni", w2c[..., :3, :3], pts3d)
+        + w2c[..., None, :3, 3]
+    )
+    px = torch.einsum("...ij,...nj->...ni", intrinsics, cam)
+    z = torch.clamp(px[..., 2:3], min=1e-6)
+    return px[..., :2] / z
 
 
 def depth_from_pose(pts3d: torch.Tensor, c2w: torch.Tensor) -> torch.Tensor:

@@ -6,8 +6,10 @@ view 0, `dec_blocks2` for the rest), each block self-attending within a
 view and cross-attending to all views' tokens through one additive
 view-block mask (context views cannot see target views; no view sees
 itself).  Per-view intrinsics and learnable pose tokens sit at positions
-(gh, 0) and (gh + 1, 0).  The JAX config's `remat` (training only) and
-its ManyAR patch embed are not ported.
+(gh, 0) and (gh + 1, 0).  `remat` recomputes each transformer block in
+the backward pass (activation checkpointing, only while autograd
+records), as the JAX config's `remat` does.  The ManyAR patch embed is
+not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spfsplatv2_tpu_torch.models.croco.layers import (
     Dense,
@@ -45,6 +48,9 @@ class CrocoBackboneConfig:
     intrinsics_token: bool = True
     pose_token: bool = True
     compute_dtype: str = "bfloat16"
+    # Recompute transformer blocks in the backward pass: O(depth) activation
+    # memory for the b=16 flagship training batch.
+    remat: bool = True
 
     @property
     def dtype(self) -> torch.dtype:
@@ -175,9 +181,16 @@ class MaskedCrocoBackbone(nn.Module):
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
         p = gh * gw
 
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def run(blk, *args):
+            if remat:
+                return checkpoint(blk, *args, use_reentrant=False)
+            return blk(*args)
+
         x, pos = self.patch_embed(images.reshape(b * v, h, w, 3))
         for blk in self.enc_blocks:
-            x = blk(x, pos)
+            x = run(blk, x, pos)
         x = self.enc_norm(x)
         x = x.reshape(b, v, p, cfg.enc_embed_dim)
         pos = pos.reshape(b, v, p, 2)
@@ -205,8 +218,8 @@ class MaskedCrocoBackbone(nn.Module):
         outputs = [x]
         f = self.decoder_embed(x)
         for blk0, blk_rest in zip(self.dec_blocks, self.dec_blocks2):
-            f = torch.cat([blk0(f, pos, view_mask), blk_rest(f, pos, view_mask)],
-                          dim=1)
+            f = torch.cat([run(blk0, f, pos, view_mask),
+                           run(blk_rest, f, pos, view_mask)], dim=1)
             outputs.append(f)
         outputs[-1] = self.dec_norm(outputs[-1])
 

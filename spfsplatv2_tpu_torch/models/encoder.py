@@ -5,8 +5,10 @@ Masked multi-view CroCo backbone over context (+ target) views; dual DPT
 pointmap heads and dual DPT-GS heads over the context views (head 1 for
 view 0, head 2 for the rest, folded into the batch); dual MLP pose heads
 on the pose token; 6D -> SE3 pose post-processing relative to view 0; and
-the unified Gaussian adapter.  Focal estimation (`estimating_focal`) and
-the heads' remat (training only) are not ported.
+the unified Gaussian adapter.  `remat_heads` recomputes the DPT heads in
+the backward pass (activation checkpointing, only while autograd
+records), as the JAX config does.  Focal estimation (`estimating_focal`)
+is not ported.
 
 Weights come from `utils/from_flax.py` (a flax param tree) or from
 `init_weights(generator)`, a seeded init with the flax initializers'
@@ -15,11 +17,11 @@ rules (LeCun truncated normal, the heads' calibrated output layers).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass, field
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spfsplatv2_tpu_torch.geometry import se3
 from spfsplatv2_tpu_torch.models.adapter import (
@@ -34,11 +36,7 @@ from spfsplatv2_tpu_torch.models.croco.backbone import (
 from spfsplatv2_tpu_torch.models.heads.dpt import DPTGSHead, DPTHead
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHead, PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
-
-# Normal quantiles of the flax truncated-normal initializer (+-2 sigma);
-# 0.8796... is the std of a unit normal truncated there.
-_TRUNC_STD = 0.87962566103423978
-_PHI_LO, _PHI_HI = 0.022750131948179195, 0.9772498680518208
+from spfsplatv2_tpu_torch.utils.init import lecun_normal_
 
 
 def dpt_hooks(dec_depth: int) -> tuple[int, ...]:
@@ -69,22 +67,9 @@ class SPFSplatV2Config:
     pose_make_relative: bool = True
     input_mean: float = 0.5
     input_std: float = 0.5
-
-
-def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
-    """In place: normal(0, std) truncated at +-2 std, by inverse CDF."""
-    u = torch.empty(t.shape, device=t.device, dtype=torch.float32)
-    u.uniform_(_PHI_LO, _PHI_HI, generator=gen)
-    with torch.no_grad():
-        t.copy_(torch.erfinv(2.0 * u - 1.0) * (math.sqrt(2.0) * std))
-
-
-def _lecun_(weight: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
-            transposed: bool = False) -> None:
-    """flax variance_scaling(scale, "fan_in", "truncated_normal")."""
-    receptive = math.prod(weight.shape[2:]) if weight.ndim > 2 else 1
-    fan_in = weight.shape[0 if transposed else 1] * receptive
-    _trunc_normal_(weight, math.sqrt(scale / fan_in) / _TRUNC_STD, gen)
+    # Recompute the full-resolution DPT heads in the backward pass: their
+    # conv activations dominate peak memory at the b=16 training batch.
+    remat_heads: bool = True
 
 
 class SPFSplatV2Encoder(nn.Module):
@@ -113,8 +98,8 @@ class SPFSplatV2Encoder(nn.Module):
         """Seeded init following the flax module's initializers."""
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                _lecun_(mod.weight, generator,
-                        transposed=isinstance(mod, nn.ConvTranspose2d))
+                lecun_normal_(mod.weight, generator,
+                              transposed=isinstance(mod, nn.ConvTranspose2d))
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
@@ -127,10 +112,10 @@ class SPFSplatV2Encoder(nn.Module):
         for s in ("1", "2"):
             # Calibrated from-scratch output layers (see the JAX heads).
             pts = getattr(self, f"downstream_head{s}").head_out
-            _lecun_(pts.weight, generator, scale=0.01)
+            lecun_normal_(pts.weight, generator, scale=0.01)
             pts.bias.copy_(torch.tensor([0.0, 0.0, 1.2]))
             gs = getattr(self, f"gaussian_param_head{s}").head_out
-            _lecun_(gs.weight, generator, scale=0.01)
+            lecun_normal_(gs.weight, generator, scale=0.01)
             if self.cfg.estimating_pose:
                 ph = getattr(self, f"pose_head{s}")
                 if self.cfg.pose_head.init_t:
@@ -152,8 +137,13 @@ class SPFSplatV2Encoder(nn.Module):
         if extra is not None:
             args1 += (extra[:, 0],)
             args2 += (extra[:, 1:].reshape(-1, *extra.shape[2:]),)
-        out1 = getattr(self, f"{prefix}1")(*args1)
-        out2 = getattr(self, f"{prefix}2")(*args2)
+        def run(head, args):
+            if self.cfg.remat_heads and torch.is_grad_enabled():
+                return checkpoint(head, *args, use_reentrant=False)
+            return head(*args)
+
+        out1 = run(getattr(self, f"{prefix}1"), args1)
+        out2 = run(getattr(self, f"{prefix}2"), args2)
         return torch.cat([out1.reshape(b, 1, *out1.shape[1:]),
                           out2.reshape(b, v - 1, *out2.shape[1:])], dim=1)
 

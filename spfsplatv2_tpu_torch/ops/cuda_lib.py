@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface (`build/kernels/lib<name>-<hash>
-.so`, the hash taken over the source, so an edited source is rebuilt) and
-loaded with `ctypes`.  The build happens at first use; `build_all()`
-starts one `nvcc` per source, all at once.  Nothing here runs at import.
+.so`, the hash taken over the source and the shared `csrc/*.cuh` headers,
+so an edited source is rebuilt) and loaded with `ctypes`.  The build
+happens at first use; `build_all()` starts one `nvcc` per source, all at
+once.  Nothing here runs at import.
 
 `launch_counts` holds one plain integer per kernel.  Each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that
@@ -39,9 +40,18 @@ SIGNATURES = {
     "composite_forward": {
         "spf_composite_forward": [_P, _P, _P, _P, _I, _I, _P, _P],
     },
+    "composite_backward": {
+        "spf_composite_backward": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    },
+    "segmented_scan": {
+        "spf_segmented_scan": [_P, _P, _P, _P, _P, _I, _L, _P],
+    },
 }
 
-launch_counts: dict[str, int] = {"composite_forward": 0, "cumsum_1d": 0}
+launch_counts: dict[str, int] = {
+    "composite_forward": 0, "composite_backward": 0, "cumsum_1d": 0,
+    "segmented_scan": 0,
+}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -58,9 +68,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -1,17 +1,25 @@
-"""Per-tile forward compositing over the prefix layout: kernel K1.
+"""Per-tile compositing over the prefix layout: kernels K1 and K2.
 
-Counterpart of the forward half of `spfsplatv2_tpu/ops/raster_pallas.py`
-(`_prefix_core` and `composite_pallas_prefix`).  The Pallas kernel
-`_forward_kernel` becomes the hand-written CUDA kernel in
-`csrc/composite_forward.cu`, which also fuses the `packed[src]` gather.
+Counterpart of `spfsplatv2_tpu/ops/raster_pallas.py` (`_prefix_core`, its
+VJP and `composite_pallas_prefix`).  The Pallas kernel `_forward_kernel`
+becomes the hand-written CUDA kernel in `csrc/composite_forward.cu` (K1,
+which also fuses the `packed[src]` gather), and `_backward_kernel` becomes
+`csrc/composite_backward.cu` (K2, per-entry gradient rows).  The rows are
+reduced per Gaussian as `_prefix_core_bwd` does: gathered into source
+order, then summed per Gaussian by `index_add_` (the default `segsum`, an
+XLA segment sum in JAX) or, under `SPFSPLAT_ACCUM=segscan`, by the
+segmented scan K4 read at the segment ends.
 
-`composite_forward` takes the plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors (or raises).  The composite is a
-`torch.autograd.Function` whose backward raises: the backward kernel
-(K2) is not ported yet, and inference runs under `torch.no_grad()`.
+Each wrapper takes its plain PyTorch version for CPU tensors and launches
+its kernel for CUDA tensors (or raises).  Unlike the JAX VJP, which drops
+the cotangent of the output's T channel (`raster_pallas.py:576-579`), the
+backward differentiates the background term T_fin * background too.
 """
 
 from __future__ import annotations
+
+import os
+from typing import NamedTuple
 
 import torch
 
@@ -23,24 +31,41 @@ from spfsplatv2_tpu_torch.ops.raster_common import (
     ProjectedGaussians,
 )
 from spfsplatv2_tpu_torch.ops.raster_tiled import PIX_PER_TILE, TILE, PrefixBins
+from spfsplatv2_tpu_torch.ops.segscan import segmented_scan_lanes
 
 NUM_FIELDS = 10  # [mx, my, conic a, b, c, r, g, b, opacity, depth]
 OUT_FIELDS = 8   # [r, g, b, depth, 1 - T, T, 0, 0]
+# Backward accumulation, the JAX package's switch (raster_pallas.py:733):
+# "segsum" (the default) or "segscan".
+ACCUM_MODE = os.environ.get("SPFSPLAT_ACCUM", "segsum")
 
 
-def composite_forward_plain_work(
-    packed: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
-    starts: torch.Tensor, tiles_x: int, chunk: int = 128,
-) -> tuple[torch.Tensor, int, int]:
-    """The plain version, plus the (pixel, entry) pairs this data needs.
+class _Chunk(NamedTuple):
+    """One chunk of every tile's segment in the plain versions' walk;
+    (t, k) per tile and entry, (t, p, k) per tile, pixel and entry."""
 
-    Tiles are batched: each step gathers entries [c0, c0 + chunk) of every
-    tile's segment (masked past its count) and applies the CUDA break rule
-    (a pixel stops for good at its first entry with T * (1 - alpha) <
-    1e-4) with a cumulative product along the chunk.  Returns the
-    (n_tiles, 256, 8) output, the pairs walked (every entry of a pixel up
-    to and including the one that stopped it) and the pairs blended
-    (composited with a non-zero weight).
+    valid: torch.Tensor       # (t, k) entry inside the tile's segment
+    slot: torch.Tensor        # (t, k) slot index
+    rows: torch.Tensor        # (t, k, 10) packed rows
+    dx: torch.Tensor          # (t, p, k) pixel minus mean
+    dy: torch.Tensor
+    alpha: torch.Tensor       # (t, p, k) zero where skipped
+    t_excl: torch.Tensor      # (t, p, k) T before the entry
+    composited: torch.Tensor  # (t, p, k)
+    w: torch.Tensor           # (t, p, k) blend weight
+    done: torch.Tensor        # (t, p) stopped before this chunk
+    stopped: torch.Tensor     # (t, p) stopped in this chunk
+    t_carry: torch.Tensor     # (t, p) T after this chunk
+
+
+def _plain_walk(packed, src, counts, starts, tiles_x, chunk):
+    """The plain versions' front-to-back walk, batched over tiles.
+
+    Each step gathers entries [c0, c0 + chunk) of every tile's segment
+    (masked past its count) and applies the CUDA break rule (a pixel stops
+    for good at its first entry with T * (1 - alpha) < 1e-4) with a
+    cumulative product along the chunk and a `done` mask.  Yields one
+    `_Chunk` per step, until every pixel has stopped.
     """
     dev = packed.device
     n_tiles = counts.shape[0]
@@ -51,13 +76,8 @@ def composite_forward_plain_work(
     tile = torch.arange(n_tiles, device=dev)
     ox = ((tile % tiles_x) * TILE).to(torch.float32)
     oy = ((tile // tiles_x) * TILE).to(torch.float32)
-
     t_carry = torch.ones((n_tiles, PIX_PER_TILE), device=dev)
-    color = torch.zeros((n_tiles, PIX_PER_TILE, 3), device=dev)
-    depth = torch.zeros((n_tiles, PIX_PER_TILE), device=dev)
     done = torch.zeros((n_tiles, PIX_PER_TILE), dtype=torch.bool, device=dev)
-    visits = torch.zeros((n_tiles, PIX_PER_TILE), dtype=torch.int64, device=dev)
-    blended = torch.zeros((), dtype=torch.int64, device=dev)
     counts64 = counts.long()
     max_count = int(counts64.max()) if n_tiles else 0
     step = torch.arange(chunk, device=dev)
@@ -82,17 +102,40 @@ def composite_forward_plain_work(
         composited = (t_incl >= T_EPS) & live
         t_excl = torch.cat([t_carry[..., None], t_incl[..., :-1]], dim=-1)
         w = torch.where(composited, alpha * t_excl, torch.zeros_like(alpha))
-        color += torch.einsum("tpk,tkc->tpc", w, rows[..., 5:8])
-        depth += torch.einsum("tpk,tk->tp", w, rows[..., 9])
         stopped = ((t_incl < T_EPS) & live).any(dim=-1)
-        n_valid = valid.sum(dim=-1)[:, None].expand_as(visits)
-        walked = torch.where(stopped, composited.sum(dim=-1) + 1, n_valid)
-        visits += torch.where(done, torch.zeros_like(walked), walked)
-        blended += (w > 0).sum()
         t_carry = torch.where(composited, t_incl, t_carry[..., None]).amin(dim=-1)
-        done |= stopped
+        yield _Chunk(valid, slot, rows, dx, dy, alpha, t_excl, composited, w,
+                     done, stopped, t_carry)
+        done = done | stopped
         if bool(done.all()):
             break
+
+
+def composite_forward_plain_work(
+    packed: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
+    starts: torch.Tensor, tiles_x: int, chunk: int = 128,
+) -> tuple[torch.Tensor, int, int]:
+    """The plain version, plus the (pixel, entry) pairs this data needs.
+
+    Returns the (n_tiles, 256, 8) output of `_plain_walk`, the pairs
+    walked (every entry of a pixel up to and including the one that
+    stopped it) and the pairs blended (composited with a non-zero weight).
+    """
+    dev = packed.device
+    n_tiles = counts.shape[0]
+    t_carry = torch.ones((n_tiles, PIX_PER_TILE), device=dev)
+    color = torch.zeros((n_tiles, PIX_PER_TILE, 3), device=dev)
+    depth = torch.zeros((n_tiles, PIX_PER_TILE), device=dev)
+    visits = torch.zeros((n_tiles, PIX_PER_TILE), dtype=torch.int64, device=dev)
+    blended = torch.zeros((), dtype=torch.int64, device=dev)
+    for ch in _plain_walk(packed, src, counts, starts, tiles_x, chunk):
+        color += torch.einsum("tpk,tkc->tpc", ch.w, ch.rows[..., 5:8])
+        depth += torch.einsum("tpk,tk->tp", ch.w, ch.rows[..., 9])
+        n_valid = ch.valid.sum(dim=-1)[:, None].expand_as(visits)
+        walked = torch.where(ch.stopped, ch.composited.sum(dim=-1) + 1, n_valid)
+        visits += torch.where(ch.done, torch.zeros_like(walked), walked)
+        blended += (ch.w > 0).sum()
+        t_carry = ch.t_carry
     out = torch.zeros((n_tiles, PIX_PER_TILE, OUT_FIELDS), device=dev)
     out[..., 0:3] = color
     out[..., 3] = depth
@@ -147,18 +190,143 @@ def composite_forward(packed, src, counts, starts, tiles_x, chunk=128):
     return composite_forward_plain(packed, src, counts, starts, tiles_x, chunk)
 
 
+def composite_backward_plain(
+    packed: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
+    starts: torch.Tensor, tiles_x: int, fwd_out: torch.Tensor,
+    grad_out: torch.Tensor, chunk: int = 128,
+) -> torch.Tensor:
+    """The plain PyTorch version of K2: per-entry gradient rows (e_pad, 10).
+
+    The suffix identity of `csrc/composite_backward.cu` over the forward
+    plain version's walk (`_plain_walk`):
+    dL/dalpha_i = T_i u_i - S_i / max(1 - alpha_i, 1e-6), with S_i = phi -
+    sum_{j<=i} w_j u_j and phi = C.gC + D gD + T_fin (gT - gA).  Slots
+    outside every tile's segment, and entries no pixel blends, are zero.
+    """
+    g_c, g_d = grad_out[..., 0:3], grad_out[..., 3]
+    s_rem = ((fwd_out[..., 0:3] * g_c).sum(-1) + fwd_out[..., 3] * g_d
+             + fwd_out[..., 5] * (grad_out[..., 5] - grad_out[..., 4]))
+    drows = torch.zeros((src.shape[0], NUM_FIELDS), device=packed.device)
+    zero = torch.zeros((), device=packed.device)
+    for ch in _plain_walk(packed, src, counts, starts, tiles_x, chunk):
+        rows, dx, dy, alpha, w = ch.rows, ch.dx, ch.dy, ch.alpha, ch.w
+        ca = rows[..., 2][:, None, :]
+        cb = rows[..., 3][:, None, :]
+        cc = rows[..., 4][:, None, :]
+        u = (torch.einsum("tpc,tkc->tpk", g_c, rows[..., 5:8])
+             + g_d[..., None] * rows[..., 9][:, None, :])
+        wu = w * u
+        s_after = s_rem[..., None] - torch.cumsum(wu, dim=-1)
+        dalpha = torch.where(
+            ch.composited,
+            ch.t_excl * u - s_after / torch.clamp(1.0 - alpha, min=1e-6), zero)
+        dpow = torch.where(alpha >= ALPHA_MAX, zero, alpha * dalpha)
+        fields = torch.stack([
+            (dpow * (ca * dx + cb * dy)).sum(1),
+            (dpow * (cc * dy + cb * dx)).sum(1),
+            (-0.5 * dpow * dx * dx).sum(1),
+            (-dpow * dx * dy).sum(1),
+            (-0.5 * dpow * dy * dy).sum(1),
+            torch.einsum("tpk,tp->tk", w, g_c[..., 0]),
+            torch.einsum("tpk,tp->tk", w, g_c[..., 1]),
+            torch.einsum("tpk,tp->tk", w, g_c[..., 2]),
+            dpow.sum(1) / torch.clamp(rows[..., 8], min=1e-9),
+            torch.einsum("tpk,tp->tk", w, g_d),
+        ], dim=-1)                                               # (t, k, 10)
+        drows[ch.slot[ch.valid]] = fields[ch.valid]
+        s_rem = s_rem - wu.sum(dim=-1)
+    return drows
+
+
+def composite_backward_cuda(
+    packed: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
+    starts: torch.Tensor, tiles_x: int, fwd_out: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K2 on CUDA tensors; returns (e_pad, 10) float32 rows.
+
+    `fwd_out` is K1's output on the same inputs (K2 re-takes its stop
+    decisions) and `grad_out` its cotangent, both (n_tiles, 256, 8).
+    """
+    dev = packed.device
+    cuda_lib.require(packed, "packed", torch.float32, 2, dev)
+    if packed.shape[1] != NUM_FIELDS:
+        raise ValueError(f"packed: expected (g, {NUM_FIELDS}), got "
+                         f"{tuple(packed.shape)}")
+    cuda_lib.require(src, "src", torch.int32, 1, dev)
+    cuda_lib.require(counts, "counts", torch.int32, 1, dev)
+    cuda_lib.require(starts, "starts", torch.int32, 1, dev)
+    n_tiles = counts.shape[0]
+    if starts.shape[0] != n_tiles or n_tiles % tiles_x:
+        raise ValueError(f"starts/counts/tiles_x disagree: {starts.shape[0]}, "
+                         f"{n_tiles}, {tiles_x}")
+    for name, t in (("fwd_out", fwd_out), ("grad_out", grad_out)):
+        cuda_lib.require(t, name, torch.float32, 3, dev)
+        if tuple(t.shape) != (n_tiles, PIX_PER_TILE, OUT_FIELDS):
+            raise ValueError(f"{name}: expected ({n_tiles}, {PIX_PER_TILE}, "
+                             f"{OUT_FIELDS}), got {tuple(t.shape)}")
+    drows = torch.zeros((src.shape[0], NUM_FIELDS), dtype=torch.float32,
+                        device=dev)
+    fn = cuda_lib.library("composite_backward").spf_composite_backward
+    err = fn(packed.data_ptr(), src.data_ptr(), counts.data_ptr(),
+             starts.data_ptr(), n_tiles, tiles_x, fwd_out.data_ptr(),
+             grad_out.data_ptr(), drows.data_ptr(), cuda_lib.stream_handle(dev))
+    cuda_lib.launch_counts["composite_backward"] += 1
+    cuda_lib.check(err, "composite_backward")
+    return drows
+
+
+def composite_backward(packed, src, counts, starts, tiles_x, fwd_out,
+                       grad_out, chunk=128):
+    """K2 on CUDA tensors, its plain version on CPU tensors."""
+    if packed.is_cuda:
+        return composite_backward_cuda(packed, src, counts, starts, tiles_x,
+                                       fwd_out, grad_out)
+    return composite_backward_plain(packed, src, counts, starts, tiles_x,
+                                    fwd_out, grad_out, chunk)
+
+
+def accumulate_rows(drows: torch.Tensor, bins: PrefixBins,
+                    n_gauss: int) -> torch.Tensor:
+    """Per-entry rows (e_pad, 10) in slot order -> per-Gaussian (g, 10).
+
+    The rows are gathered into source order (`src_order`); dead and
+    dropped positions carry segment id g.  "segsum" sums each Gaussian's
+    run with `index_add_`; "segscan" runs K4 and reads each run's last
+    lane at `ends - 1` (Gaussians with no entry get zero), falling back to
+    the sum when the budget dropped entries, since the ends then no
+    longer match the stream.
+    """
+    drows_s = drows[bins.src_order.long()]                     # (e_pad, 10)
+    if ACCUM_MODE == "segscan" and not bool(bins.has_drops):
+        scanned = segmented_scan_lanes(drows_s.T.contiguous(), bins.src_sorted)
+        take = torch.clamp(bins.ends.long() - 1, 0, drows.shape[0] - 1)
+        return torch.where((bins.live_counts > 0)[:, None], scanned[:, take].T,
+                           torch.zeros((), device=drows.device))
+    out = torch.zeros((n_gauss + 1, NUM_FIELDS), dtype=drows.dtype,
+                      device=drows.device)
+    return out.index_add_(0, bins.src_sorted.long(), drows_s)[:n_gauss]
+
+
 class _PrefixComposite(torch.autograd.Function):
-    """Forward compositing; the backward kernel is not ported yet."""
+    """K1 forward; K2 and the per-Gaussian reduction backward."""
 
     @staticmethod
-    def forward(ctx, packed, src, counts, starts, tiles_x, chunk):
-        return composite_forward(packed, src, counts, starts, tiles_x, chunk)
+    def forward(ctx, packed, bins, tiles_x, chunk):
+        out = composite_forward(packed, bins.src, bins.counts, bins.starts,
+                                tiles_x, chunk)
+        ctx.save_for_backward(packed, out)
+        ctx.bins, ctx.tiles_x, ctx.chunk = bins, tiles_x, chunk
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "backward compositing kernel (K2) lands with the training slice"
-        )
+        packed, out = ctx.saved_tensors
+        bins = ctx.bins
+        drows = composite_backward(packed, bins.src, bins.counts, bins.starts,
+                                   ctx.tiles_x, out, grad_out.contiguous(),
+                                   ctx.chunk)
+        return accumulate_rows(drows, bins, packed.shape[0]), None, None, None
 
 
 def untile(x: torch.Tensor, num_tiles_xy: tuple[int, int],
@@ -190,8 +358,7 @@ def composite_prefix(
          depth_safe[:, None]],
         dim=-1,
     ).to(torch.float32).contiguous()                     # (g, NUM_FIELDS)
-    out = _PrefixComposite.apply(packed, bins.src, bins.counts, bins.starts,
-                                 tiles_x, chunk)     # (n_tiles, 256, 8)
+    out = _PrefixComposite.apply(packed, bins, tiles_x, chunk)  # (n_tiles, 256, 8)
     color_t = out[..., 0:3] + out[..., 5:6] * background[None, None, :]
     return (
         untile(color_t, bins.num_tiles_xy, image_shape),

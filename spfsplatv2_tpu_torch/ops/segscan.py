@@ -1,11 +1,12 @@
-"""Inclusive 1-D prefix sum: kernel K3 and its plain version.
+"""Scans: the 1-D prefix sum (kernel K3) and the segmented scan (K4),
+each with its plain version.
 
-Counterpart of `spfsplatv2_tpu/ops/segscan.py:cumsum_1d`, whose Pallas
+Counterpart of `spfsplatv2_tpu/ops/segscan.py`: `cumsum_1d`, whose Pallas
 kernel `_cumsum_kernel` becomes the hand-written CUDA kernel in
-`csrc/prefix_scan.cu`.  A CPU tensor takes the plain version
-(`torch.cumsum`, cast back to the input dtype); a CUDA tensor launches
-the kernel or raises.  The segmented scan of the same JAX module (K4)
-runs only in the backward pass and is not ported yet.
+`csrc/prefix_scan.cu`, and `segmented_scan_lanes`, whose `_segscan_kernel`
+becomes `csrc/segmented_scan.cu` (the rasterizer's backward accumulation
+under `SPFSPLAT_ACCUM=segscan`).  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from spfsplatv2_tpu_torch.ops import cuda_lib
 
-BLOCK = 1024  # elements per CTA in csrc/prefix_scan.cu
+BLOCK = 1024  # elements per CTA in csrc/prefix_scan.cu and csrc/segmented_scan.cu
 _FUNCTIONS = {torch.int32: "spf_cumsum_i32", torch.float32: "spf_cumsum_f32"}
 
 
@@ -47,3 +48,43 @@ def cumsum_1d(vals: torch.Tensor) -> torch.Tensor:
     if vals.is_cuda:
         return cumsum_1d_cuda(vals)
     return cumsum_1d_plain(vals)
+
+
+def segmented_scan_lanes_plain(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K4: a float64 cumulative sum along each
+    row minus its value just before each element's segment start."""
+    first = torch.searchsorted(seg.contiguous(), seg.contiguous())  # (n,)
+    cs = torch.cumsum(vals.to(torch.float64), dim=1)
+    before = torch.where(first > 0, cs[:, torch.clamp(first - 1, min=0)],
+                         torch.zeros_like(cs))
+    return (cs - before).to(vals.dtype)
+
+
+def segmented_scan_lanes_cuda(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on a contiguous (R, N) float32 and (N,) int32 CUDA pair."""
+    cuda_lib.require(vals, "vals", torch.float32, 2, vals.device)
+    cuda_lib.require(seg, "seg", torch.int32, 1, vals.device)
+    rows, n = vals.shape
+    if seg.shape[0] != n:
+        raise ValueError(f"seg has {seg.shape[0]} ids for {n} lanes")
+    out = torch.empty_like(vals)
+    n_blocks = max(-(-n // BLOCK), 1)
+    tot_v = torch.empty((rows, n_blocks), dtype=torch.float32, device=vals.device)
+    tot_f = torch.empty((rows, n_blocks), dtype=torch.int32, device=vals.device)
+    fn = cuda_lib.library("segmented_scan").spf_segmented_scan
+    err = fn(vals.data_ptr(), seg.data_ptr(), out.data_ptr(), tot_v.data_ptr(),
+             tot_f.data_ptr(), rows, n, cuda_lib.stream_handle(vals.device))
+    cuda_lib.launch_counts["segmented_scan"] += 1
+    cuda_lib.check(err, "segmented_scan")
+    return out
+
+
+def segmented_scan_lanes(vals: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Inclusive sum scan along the last axis of (R, N) float32 `vals`,
+    restarting wherever the non-decreasing segment ids `seg` (N,) change."""
+    if vals.ndim != 2 or seg.ndim != 1:
+        raise ValueError(f"segmented_scan_lanes takes (R, N) and (N,), got "
+                         f"{tuple(vals.shape)} and {tuple(seg.shape)}")
+    if vals.is_cuda:
+        return segmented_scan_lanes_cuda(vals, seg)
+    return segmented_scan_lanes_plain(vals, seg)

@@ -56,7 +56,8 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             else:
                 leaf, arr = _leaf(name, np.asarray(value))
                 key = ".".join(prefix + [leaf])
-                out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+                # A copy: JAX arrays read through numpy are not writable.
+                out[key] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(params, [])
     return out

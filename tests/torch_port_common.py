@@ -8,6 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+# The suite runs several pytest-xdist workers at once: torch's default of
+# one OpenMP thread per core in each of them oversubscribes the host, and
+# the spinning threads slow the port's many small CPU ops tenfold or more.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 
 def assert_images_close(actual, desired, atol=2e-5, frac=0.999, hard_atol=5e-3):
     """Allclose for rasterized images (copied from tests/test_rasterizer.py).
@@ -64,7 +69,9 @@ def cuda_device():
 
 
 # Tiny encoder: 2 encoder / 2 decoder blocks, narrow widths, float32
-# compute (remat only changes the JAX backward, so it is off here).
+# compute.  Remat changes only what the backward keeps, so it is off on
+# the JAX side; the port's default (on) is held against it and against
+# remat off in test_torch_train.py.
 TINY_BACKBONE = dict(
     patch_size=16, enc_depth=2, enc_embed_dim=64, enc_num_heads=4,
     dec_depth=2, dec_embed_dim=48, dec_num_heads=4, compute_dtype="float32",
