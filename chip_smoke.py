@@ -8,7 +8,7 @@ toolkit:
 
 Phases, each printing JSON lines:
   1. environment: torch, the card, its power limit, the TF32 settings;
-  2. build: every kernel (K1-K4), compiled from `csrc/` with one `nvcc`
+  2. build: every kernel (K1-K5), compiled from `csrc/` with one `nvcc`
      per source, all started together;
   3. K3 (`cumsum_1d`, csrc/prefix_scan.cu) against its plain version
      (int32 exact) at the main path's n and a ragged n, timed beside
@@ -34,15 +34,30 @@ Phases, each printing JSON lines:
   9. test-time pose alignment: one request through `evaluate_example(...,
      align_pose=True)` at the published 100 steps and lr 5e-4, with K2's
      launches read around it;
- 10. the training path: 3 steps of `make_train_step` on the full-width
+ 10. K5 (`flash_attention`: csrc/flash_forward.cu, flash_backward_dkv.cu,
+     flash_backward_dq.cu) at the three shapes of the 1024^2 path
+     (encoder (3, 16, 4096, 64), decoder view 0 (1, 12, 4098, 64), views
+     1-2 (2, 12, 4098, 64)) with seeded inputs and cotangent: O, lse, dQ,
+     dK and dV against their plain versions, the autograd function
+     against autograd through the dense form; timed beside the plain
+     versions and `torch.nn.functional.scaled_dot_product_attention`
+     (the yardstick; the port never calls it);
+ 11. the long-context serving path: 3 requests at 1024^2 (64 x 64
+     patches a view, so every self-attention has 4096 or 4098 keys and
+     takes K5) through `evaluate_example` with the quantized depth key,
+     launch counts read around exactly those requests; then one encoder
+     block's real q, k, v through K5 against the plain version;
+ 12. the training path: 3 steps of `make_train_step` on the full-width
      encoder (remat on, seeded LPIPS, the re10k optimizer recipe) at the
      flagship batch, b = 16 of 2 context + 1 target at 256^2, with the
      launch counts read around exactly those steps; then one more step
      under the JAX package's `SPFSPLAT_ACCUM=segscan` switch, which
-     reaches K4.
-Then the kernels line (each kernel's times, bound, launches on the
-training path and check results), the card's name and power limit, and
-the result.
+     reaches K4;
+ 13. the long-context training path: 2 steps at 1024^2, b = 2, with the
+     launch counts (K5's backward kernels included) read around exactly
+     those steps.
+Then the kernels line (each kernel's times, bound, launches on its path
+and check results), the card's name and power limit, and the result.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -59,6 +74,7 @@ from pathlib import Path
 SEED = 0
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same source
+H100_BF16_PER_S = 989e12     # bf16 tensor cores, dense, same source
 # FP32 operations per (pixel, entry) pair in K1: every walked pair pays
 # dx, dy and the power (11), exp, scale and clamp (3); a blended pair adds
 # the transmittance test (2), its weight (1) and 4 accumulations (8).
@@ -72,6 +88,23 @@ K2_OPS_WALKED, K2_OPS_BLENDED = 14, 51
 # (peak memory in PERF.md), so the step takes no gradient accumulation.
 TRAIN_BATCH, TRAIN_MICROBATCH = 16, 16
 ALIGN_STEPS, ALIGN_LR = 100, 5e-4
+# The long-context path: 1024^2 views, b = 2 in training (microbatch in
+# PERF.md), K5 at these (b, h, n_q, n_k) with head dim 64.
+HW_LONG = 1024
+LONG_BATCH, LONG_MICROBATCH = 2, 2
+K5_SHAPES = {"encoder": (3, 16, 4096, 4096),
+             "decoder_view0": (1, 12, 4098, 4098),
+             "decoder_views12": (2, 12, 4098, 4098)}
+K5_TOL = 1e-2        # kernel vs plain: max |err| <= 1e-2 * max |plain|
+# The autograd function against autograd through the dense form in
+# float32 on the same bf16 inputs: the kernels round P and dS to bf16.
+K5_TOL_DENSE = 2e-2
+K5_FLOPS = {"flash_forward": 4, "flash_backward_dkv": 8,
+            "flash_backward_dq": 6}  # x b*h*n_q*n_k*64 on the tensor cores
+# Self-attention launches per 1024^2 encoder pass: 24 encoder blocks and
+# 12 + 12 decoder blocks; the 12th call (encoder block 12) is held
+# against the plain version on its real q, k, v.
+K5_PER_PASS, K5_CHECK_CALL = 48, 11
 
 
 def emit(obj: dict) -> None:
@@ -130,6 +163,110 @@ def pixel_aligned_scene(torch, views: int, hw: int, gen, dev, d_sh=25,
     return means, covs, harm, opac
 
 
+def max_err(actual, desired) -> dict:
+    actual, desired = actual.detach().float(), desired.detach().float()
+    diff = (actual - desired).abs()
+    return {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "ref_max_abs": float(desired.abs().max())}
+
+
+def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
+    """K5's three kernels against their plain versions, and the autograd
+    function against autograd through the float32 dense form, at one path shape
+    with seeded inputs and cotangent; then their times beside the plain
+    versions and SDPA's."""
+    import torch.nn.functional as F
+
+    b, h, n_q, n_k = shape
+    scale = 64**-0.5
+
+    def make(n):
+        return torch.randn(b, h, n, 64, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
+    o, lse = attention.flash_forward_cuda(q, k, v, scale)
+    di = (do.float() * o.float()).sum(-1)
+    dk, dv = attention.flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
+    dq = attention.flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = attention.flash_forward_plain(q, k, v, scale)
+    dk_p, dv_p = attention.flash_backward_dkv_plain(q, k, v, do, lse, di, scale)
+    dq_p = attention.flash_backward_dq_plain(q, k, v, do, lse, di, scale)
+    checks = {"o": max_err(o, o_p), "dq": max_err(dq, dq_p),
+              "dk": max_err(dk, dk_p), "dv": max_err(dv, dv_p)}
+    for key, c in checks.items():
+        if not c["max_abs_err"] <= K5_TOL * c["ref_max_abs"]:
+            fail(f"K5 {name} {key} vs plain: {c}")
+    checks["lse"] = max_err(lse, lse_p)
+    if not checks["lse"]["max_abs_err"] <= 1e-4 * checks["lse"]["ref_max_abs"]:
+        fail(f"K5 {name} lse vs plain: {checks['lse']}")
+
+    def grads(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, scale)
+        return out, torch.autograd.grad(out, leaves, do.to(dtype))
+
+    out_k, g_k = grads(attention.flash_attention, torch.bfloat16)
+    out_d, g_d = grads(attention._dense, torch.float32)
+    dense = {key: max_err(a, ref) for key, a, ref in
+             zip(("o", "dq", "dk", "dv"), (out_k, *g_k), (out_d, *g_d))}
+    for key, c in dense.items():
+        if not c["max_abs_err"] <= K5_TOL_DENSE * c["ref_max_abs"]:
+            fail(f"K5 {name} autograd {key} vs the float32 dense form: {c}")
+    del out_k, g_k, out_d, g_d
+
+    bwd_args = (q, k, v, do, lse, di, scale)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*leaves, scale), leaves, do)
+
+    sdpa = lambda q_, k_, v_, s: F.scaled_dot_product_attention(  # noqa: E731
+        q_, k_, v_, scale=s)
+    sdpa_out = sdpa(*leaves, scale)
+    times = {
+        "flash_forward": {
+            "ms": time_ms(torch, lambda: attention.flash_forward_cuda(
+                q, k, v, scale), 20),
+            "plain_ms": time_ms(torch, lambda: attention.flash_forward_plain(
+                q, k, v, scale), 3, warmup=1),
+            "library_ms": time_ms(torch, lambda: sdpa(q, k, v, scale), 20)},
+        "flash_backward_dkv": {
+            "ms": time_ms(torch, lambda: attention.flash_backward_dkv_cuda(
+                *bwd_args), 10),
+            "plain_ms": time_ms(torch, lambda: attention.
+                                flash_backward_dkv_plain(*bwd_args), 3,
+                                warmup=1)},
+        "flash_backward_dq": {
+            "ms": time_ms(torch, lambda: attention.flash_backward_dq_cuda(
+                *bwd_args), 10),
+            "plain_ms": time_ms(torch, lambda: attention.
+                                flash_backward_dq_plain(*bwd_args), 3,
+                                warmup=1)},
+    }
+    # SDPA's backward gives dQ, dK and dV in one call: it stands beside
+    # both backward kernels.
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, leaves, do, retain_graph=True), 10)
+    for key in ("flash_backward_dkv", "flash_backward_dq"):
+        times[key]["library_ms"] = sdpa_bwd
+    for key, t in times.items():
+        t["bound_ms"] = K5_FLOPS[key] * b * h * n_q * n_k * 64 / H100_BF16_PER_S * 1e3
+        t["bound_by"] = "operations"
+    times["flash_forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
+    times["flash_backward_dkv"]["max_abs_err"] = max(
+        checks["dk"]["max_abs_err"], checks["dv"]["max_abs_err"])
+    times["flash_backward_dq"]["max_abs_err"] = checks["dq"]["max_abs_err"]
+    fwd_bwd_ms = {
+        "kernels": time_ms(torch, fwd_bwd(attention.flash_attention), 5),
+        "plain": time_ms(torch, fwd_bwd(attention._dense), 3, warmup=1),
+        "sdpa": time_ms(torch, fwd_bwd(sdpa), 5)}
+    return {"shape": list(shape), "vs_plain": checks,
+            "vs_dense_f32_autograd": dense,
+            "kernels": times, "fwd_bwd_ms": fwd_bwd_ms}
+
+
 def main() -> int:
     import torch
 
@@ -147,7 +284,7 @@ def main() -> int:
     from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
     from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
-    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda
+    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
     from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
     from spfsplatv2_tpu_torch.ops.raster_cuda import (
         accumulate_rows,
@@ -159,7 +296,7 @@ def main() -> int:
     )
     from spfsplatv2_tpu_torch.ops.raster_ref import composite_reference
     from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
-    from spfsplatv2_tpu_torch.ops.rasterizer import entry_budget
+    from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig, entry_budget
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
     from spfsplatv2_tpu_torch.training.step import (
         LossConfig,
@@ -315,14 +452,15 @@ def main() -> int:
     emit({"phase": "encoder_init", "seconds": time.perf_counter() - t0,
           "params": n_params, "compute_dtype": cfg.backbone.compute_dtype})
 
-    def request(i: int) -> dict:
+    def request(i: int, size: int = hw) -> dict:
         r = torch.Generator(device=dev).manual_seed(1000 + i)
         k = k_norm.expand(1, 3, 3)
 
         def view(offset):
             c2w = torch.eye(4, device=dev)
             c2w[0, 3] = offset
-            return {"image": torch.rand(1, hw, hw, 3, generator=r, device=dev),
+            return {"image": torch.rand(1, size, size, 3, generator=r,
+                                        device=dev),
                     "intrinsics": k.clone(), "extrinsics": c2w[None],
                     "near": torch.ones(1, device=dev),
                     "far": torch.full((1,), 100.0, device=dev)}
@@ -552,7 +690,90 @@ def main() -> int:
           "pose_rot_err_deg_after": after["pose_rot_err_deg"],
           "launches": align_counts})
 
-    # ---- 10. the training path ----------------------------------------
+    # ---- 10. K5: flash attention at the 1024^2 path's shapes ----------
+    k5 = {}
+    for name, shape in K5_SHAPES.items():
+        k5[name] = k5_phase(torch, attention, name, shape, gen, dev)
+        emit({"phase": "K5", "call": name, **k5[name]})
+    torch.cuda.empty_cache()
+
+    # ---- 11. the long-context serving path (1024^2) -------------------
+    long_dec = DecoderConfig(rasterizer=RasterizerConfig(
+        entry_budget_factor=4.0, depth_key="quantized"))
+    long_size = (HW_LONG, HW_LONG)
+    evaluate_example(encoder, request(-2, HW_LONG), long_size, long_dec,
+                     eval_cfg, device=dev)
+    long_requests = [request(10 + i, HW_LONG) for i in range(3)]
+    long_results = []
+    cuda_lib.reset_launch_counts()
+    for ex in long_requests:
+        bench = Benchmarker(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = evaluate_example(encoder, ex, long_size, long_dec, eval_cfg,
+                               benchmarker=bench, device=dev)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["times"] = bench.summarize()
+        long_results.append(res)
+    long_counts = dict(cuda_lib.launch_counts)
+    n_req = len(long_requests)
+    want = {"flash_forward": K5_PER_PASS * n_req, "flash_backward_dkv": 0,
+            "flash_backward_dq": 0, "composite_forward": n_req,
+            "cumsum_1d": 2 * n_req}
+    if any(long_counts[key] != val for key, val in want.items()):
+        fail(f"1024^2 serving launch counts {long_counts}, expected {want}")
+    for i, res in enumerate(long_results):
+        if tuple(res["rendered"].shape) != (1, HW_LONG, HW_LONG, 3):
+            fail(f"1024^2 request {i}: rendered shape "
+                 f"{tuple(res['rendered'].shape)}")
+        vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"]]
+        if not bool(torch.isfinite(res["rendered"]).all()) or not all(
+                v == v and abs(v) != float("inf") for v in vals):
+            fail(f"1024^2 request {i}: non-finite output")
+        emit({"phase": "request_1024", "index": i,
+              "encoder_ms": res["times"]["encoder"]["mean_s"] * 1e3,
+              "decoder_ms": res["times"]["decoder"]["mean_s"] * 1e3,
+              "psnr": res["psnr"], "ssim": res["ssim"],
+              "dropped_entries": res["dropped_entries"],
+              "peak_bytes": res["peak_bytes"]})
+    # One encoder block's real q, k, v (block 12 of 24), captured from an
+    # encoder pass on the first request, through K5 against the plain
+    # version.
+    captured = []
+    flash_inner = attention.flash_attention
+
+    def capture(q_, k_, v_, s_):
+        captured.append((q_.contiguous(), k_.contiguous(), v_.contiguous(), s_))
+        return flash_inner(q_, k_, v_, s_)
+
+    attention.flash_attention = capture
+    try:
+        with torch.no_grad():
+            c, t = long_requests[0]["context"], long_requests[0]["target"]
+            encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
+                    t["intrinsics"][None])
+    finally:
+        attention.flash_attention = flash_inner
+    if len(captured) != K5_PER_PASS:
+        fail(f"1024^2 encoder pass took the flash branch {len(captured)} times")
+    bq, bk, bv, bscale = captured[K5_CHECK_CALL]
+    real_o, _ = attention.flash_forward_cuda(bq, bk, bv, bscale)
+    real_p, _ = attention.flash_forward_plain(bq, bk, bv, bscale)
+    real_check = max_err(real_o, real_p)
+    del captured
+    if not real_check["max_abs_err"] <= K5_TOL * real_check["ref_max_abs"]:
+        fail(f"K5 on encoder block 12's q, k, v vs plain: {real_check}")
+    emit({"phase": "serving_1024", "requests": n_req, "launches": long_counts,
+          "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3
+                         for r in long_results],
+          "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3
+                         for r in long_results],
+          "peak_bytes": max(r["peak_bytes"] for r in long_results),
+          "encoder_block12_qkv": {"shape": list(bq.shape), **real_check},
+          "seconds_total": time.perf_counter() - t_start})
+    del long_results
+    torch.cuda.empty_cache()
+
+    # ---- 12. the training path ----------------------------------------
     lpips = build_lpips(seed=SEED, device=dev)
     encoder.train()
     optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
@@ -561,16 +782,15 @@ def main() -> int:
                                  LossConfig(), lpips,
                                  microbatch=TRAIN_MICROBATCH)
 
-    def train_batch(i: int) -> dict:
+    def train_batch(i: int, b: int = TRAIN_BATCH, size: int = hw) -> dict:
         r = torch.Generator(device=dev).manual_seed(2000 + i)
-        b = TRAIN_BATCH
 
         def side(v, offsets):
             c2w = torch.eye(4, device=dev).repeat(b, v, 1, 1)
             c2w[..., 0, 3] = torch.tensor(offsets, device=dev)
             c2w[..., :3, 3] += 0.02 * torch.randn(b, v, 3, generator=r,
                                                   device=dev)
-            return {"image": torch.rand(b, v, hw, hw, 3, generator=r,
+            return {"image": torch.rand(b, v, size, size, 3, generator=r,
                                         device=dev),
                     "intrinsics": k_norm.expand(b, v, 3, 3).clone(),
                     "extrinsics": c2w,
@@ -579,13 +799,13 @@ def main() -> int:
 
         return {"context": side(2, [0.0, 0.2]), "target": side(1, [0.1])}
 
-    def run_step(batch) -> dict:
+    def run_step(batch, step_fn=train_step) -> dict:
         snapshot = [p.detach().clone() for p in encoder.parameters()]
         skipped = optimizer.skipped_count
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, metrics = train_step(state, batch)
+        _, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if not all(v == v and abs(v) != float("inf")
@@ -614,7 +834,9 @@ def main() -> int:
     train_counts = dict(cuda_lib.launch_counts)
     per_step = {"composite_forward": TRAIN_BATCH,
                 "composite_backward": TRAIN_BATCH,
-                "cumsum_1d": 2 * TRAIN_BATCH, "segmented_scan": 0}
+                "cumsum_1d": 2 * TRAIN_BATCH, "segmented_scan": 0,
+                "flash_forward": 0, "flash_backward_dkv": 0,
+                "flash_backward_dq": 0}
     if train_counts != {k: 3 * v for k, v in per_step.items()}:
         fail(f"train launch counts {train_counts} for 3 steps of "
              f"{TRAIN_BATCH} cameras")
@@ -640,12 +862,50 @@ def main() -> int:
           "skipped_steps": optimizer.skipped_count,
           "applied_updates": optimizer.count,
           "seconds_total": time.perf_counter() - t_start})
+    del batches
+    torch.cuda.empty_cache()
+
+    # ---- 13. the long-context training path (1024^2) ------------------
+    long_train_step = make_train_step(encoder, optimizer, long_size, long_dec,
+                                      LossConfig(), lpips,
+                                      microbatch=LONG_MICROBATCH)
+    long_batches = [train_batch(10 + i, LONG_BATCH, HW_LONG) for i in range(2)]
+    cuda_lib.reset_launch_counts()
+    long_steps = [run_step(batch, long_train_step) for batch in long_batches]
+    long_train_counts = dict(cuda_lib.launch_counts)
+    # Each microbatch pass (LONG_BATCH // LONG_MICROBATCH a step, 2 steps)
+    # runs the encoder forward once and, under remat, again in the
+    # backward; K1/K2 run once per target camera, K3 twice.
+    passes = 2 * (LONG_BATCH // LONG_MICROBATCH)
+    want = {"flash_forward": 2 * K5_PER_PASS * passes,
+            "flash_backward_dkv": K5_PER_PASS * passes,
+            "flash_backward_dq": K5_PER_PASS * passes,
+            "composite_forward": 2 * LONG_BATCH,
+            "composite_backward": 2 * LONG_BATCH,
+            "cumsum_1d": 4 * LONG_BATCH, "segmented_scan": 0}
+    if long_train_counts != want:
+        fail(f"1024^2 train launch counts {long_train_counts}, expected {want}")
+    for st in long_steps:
+        emit({"phase": "train_step_1024", "batch": LONG_BATCH,
+              "microbatch": LONG_MICROBATCH, **st})
+    emit({"phase": "train_1024", "batch": LONG_BATCH,
+          "microbatch": LONG_MICROBATCH, "steps": len(long_steps),
+          "launches": long_train_counts,
+          "step_ms": [st["ms"] for st in long_steps],
+          "peak_bytes": max(st["peak_bytes"] for st in long_steps),
+          "branches": [st["branch"] for st in long_steps],
+          "seconds_total": time.perf_counter() - t_start})
 
     # ---- kernels line, card, result -----------------------------------
-    # Launches: each kernel's count over the training path's 3 steps (K4:
-    # over the segscan step); the other paths' counts beside them.
+    # Launches: each kernel's count over its path: K1-K3 over the training
+    # path's 3 steps, K4 over the segscan step, K5's forward over the 3
+    # requests at 1024^2, its backward kernels over the 2 train steps at
+    # 1024^2; the other paths' counts beside them.  K5's times are those
+    # at the encoder's shape (phase 10 has all three).
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
-             "train_3_steps": train_counts, "train_segscan_step": segscan_counts}
+             "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
+             "serving_1024_3_requests": long_counts,
+             "train_1024_2_steps": long_train_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -680,6 +940,21 @@ def main() -> int:
          "launches": segscan_counts["segmented_scan"],
          "launches_by_path": by_path("segmented_scan"), **k4,
          "check": {"vs_plain_within_1e-5_of_running_abs_sum": True}},
+        *[{"name": name, "route": "cuda",
+           "source": f"spfsplatv2_tpu_torch/csrc/{name}.cu",
+           "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                       f"{line}",
+           "launches": (long_counts if name == "flash_forward"
+                        else long_train_counts)[name],
+           "launches_by_path": by_path(name),
+           **k5["encoder"]["kernels"][name],
+           "shape": k5["encoder"]["shape"],
+           "check": {call: {key: c["max_abs_err"] / c["ref_max_abs"]
+                            for key, c in res["vs_plain"].items()}
+                     for call, res in k5.items()}}
+          for name, line in (("flash_forward", 331),
+                             ("flash_backward_dkv", 796),
+                             ("flash_backward_dq", 1146))],
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 """Profile one step of a full-width path on the card with torch.profiler.
 
-    python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train]
+    python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train] [256|1024]
 
 Builds the flagship encoder from a seeded random init (as chip_smoke.py
 does), runs the path once to warm up, then once under `torch.profiler`,
@@ -12,6 +12,10 @@ the most device time.  The paths:
   * align: one request with test-time pose alignment, 10 steps;
   * train: one `make_train_step` step at the flagship batch (b = 16,
     seeded LPIPS, the re10k optimizer recipe).
+The second argument is the image size: 256 (default) or 1024, the
+long-context path, where every self-attention takes flash attention
+(K5), the binning takes the quantized depth key and a train step takes
+b = 2.
 """
 
 from __future__ import annotations
@@ -24,9 +28,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
+from spfsplatv2_tpu_torch.models.decoder import DecoderConfig
 from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
+from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig
 
 ALIGN_STEPS = 10
+# Image size -> (decoder config, train batch).  At 1024^2 the rank depth
+# key overflows the 31-bit binning key, so the quantized key is used.
+SIZES = {
+    256: (DecoderConfig(), 16),
+    1024: (DecoderConfig(rasterizer=RasterizerConfig(
+        entry_budget_factor=4.0, depth_key="quantized")), 2),
+}
 
 
 def _views(gen, b, offsets, hw, device) -> dict:
@@ -59,13 +72,15 @@ def synthetic_batch(seed: int, b: int, hw: int, device: torch.device) -> dict:
 
 
 def _runner(path: str, encoder, hw: int, seed: int, dev):
+    dec_cfg, train_batch = SIZES[hw]
     if path == "serving":
         request = synthetic_request(seed + 1, hw, dev)
-        return lambda: evaluate_example(encoder, request, (hw, hw), device=dev)
+        return lambda: evaluate_example(encoder, request, (hw, hw), dec_cfg,
+                                        device=dev)
     if path == "align":
         request = synthetic_request(seed + 1, hw, dev)
         cfg = EvalConfig(align_pose=True, pose_align_steps=ALIGN_STEPS)
-        return lambda: evaluate_example(encoder, request, (hw, hw),
+        return lambda: evaluate_example(encoder, request, (hw, hw), dec_cfg,
                                         eval_cfg=cfg, device=dev)
     if path == "train":
         from spfsplatv2_tpu_torch.losses.lpips import build_lpips
@@ -77,10 +92,11 @@ def _runner(path: str, encoder, hw: int, seed: int, dev):
         )
 
         optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
-        step = make_train_step(encoder, optimizer, (hw, hw), lpips=build_lpips(
-            seed, dev), loss_cfg=LossConfig())
+        step = make_train_step(encoder, optimizer, (hw, hw), dec_cfg,
+                               lpips=build_lpips(seed, dev),
+                               loss_cfg=LossConfig())
         state = init_train_state(encoder, optimizer)
-        batch = synthetic_batch(seed + 1, 16, hw, dev)
+        batch = synthetic_batch(seed + 1, train_batch, hw, dev)
         return lambda: step(state, batch)
     raise ValueError(f"unknown path {path!r}: serving, align or train")
 
@@ -105,6 +121,7 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
                  reverse=True)[:15]
     result = {
         "path": path,
+        "image_size": hw,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_under_profiler": wall_ms,
         "device_busy_ms": busy_ms,
@@ -117,4 +134,4 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:2], *map(int, sys.argv[2:3]))

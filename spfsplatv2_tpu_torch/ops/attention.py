@@ -1,19 +1,25 @@
-"""Scaled-dot-product attention, dense branches (torch port of
+"""Scaled-dot-product attention (torch port of
 `spfsplatv2_tpu/ops/attention.py`).
 
-The flagship's sequences (3 views x 258 tokens) take the dense form:
-einsum in the compute dtype, float32 logits and softmax, then a cast back.
-These are plain tensor ops in JAX too, not Pallas kernels.  Above the
-thresholds the JAX package switches to a flash kernel (`sdpa`, a TPU
-kernel still to be ported, K5) or to query chunking
-(`sdpa_view_masked`); neither is on this port's path yet, so both raise.
+Short sequences take the dense form: einsum in the compute dtype, float32
+logits and softmax, then a cast back (plain tensor ops in JAX too).  At
+`FLASH_MIN_KV` keys or more, `sdpa` takes the flash attention of kernel
+K5, the port of JAX's bundled TPU flash attention: on CUDA tensors the
+three hand-written kernels `csrc/flash_forward.cu`,
+`csrc/flash_backward_dkv.cu` and `csrc/flash_backward_dq.cu` behind a
+`torch.autograd.Function`; on CPU tensors their plain version, the dense
+form.  The view-masked attention stays dense below `chunked_min_kv` keys
+and is computed in query chunks above it, as in JAX (no kernel there).
 """
 
 from __future__ import annotations
 
 import torch
 
+from spfsplatv2_tpu_torch.ops import cuda_lib
+
 FLASH_MIN_KV = 4096
+HEAD_DIM = 64  # the only head dim K5 takes (1024 / 16 and 768 / 12)
 
 
 def _dense(q, k, v, scale):
@@ -22,13 +28,165 @@ def _dense(q, k, v, scale):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def sdpa(q, k, v, scale, *, flash_min_kv: int = FLASH_MIN_KV):
-    """Unmasked attention over (b, h, n, d) tensors."""
+def _check_flash_inputs(tensors: dict, n_q: int, n_k: int) -> int:
+    """Raise unless K5 takes these tensors; returns batch x heads."""
+    q = tensors["q"]
+    for name, t in tensors.items():
+        cuda_lib.require(t, name, torch.bfloat16, 4, q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    b, h, _, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"flash attention takes head dim {HEAD_DIM}, got {d}")
+    for name, t in tensors.items():
+        n = n_q if name in ("q", "do") else n_k
+        if tuple(t.shape) != (b, h, n, d):
+            raise ValueError(f"{name}: expected {(b, h, n, d)}, got "
+                             f"{tuple(t.shape)}")
+    if b * h > 65535:
+        raise ValueError(f"flash attention takes at most 65535 batch x heads, "
+                         f"got {b * h}")
+    return b * h
+
+
+def _require_f32(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+    cuda_lib.require(t, name, torch.float32, len(shape), device)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+
+
+def flash_forward_plain(q, k, v, scale):
+    """The plain version of K5's forward, in its arithmetic: float32 logits
+    and softmax numerator, the numerator rounded to v's dtype for the PV
+    product, the sum taken in float32.  Returns O in v's dtype and the
+    rows' log-sum-exp, (b, h, n_q) float32.  (`flash_attention` on CPU
+    tensors takes the dense form instead, which rounds the logits to the
+    compute dtype, as JAX's dense branch does.)"""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()) / l
+    return o.to(v.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_forward_cuda(q, k, v, scale):
+    """Launch K5's forward on contiguous (b, h, n, 64) bf16 CUDA tensors;
+    returns O (b, h, n_q, 64) bf16 and lse (b, h, n_q) float32."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    bh = _check_flash_inputs({"q": q, "k": k, "v": v}, n_q, n_k)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = cuda_lib.library("flash_forward").spf_flash_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        bh, n_q, n_k, float(scale), cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts["flash_forward"] += 1
+    cuda_lib.check(err, "flash_forward")
+    return o, lse
+
+
+def _p_and_ds(q, k, v, do, lse, di, scale):
+    """K5's backward arithmetic in float32: P rebuilt from lse and dS, both
+    rounded to the inputs' dtype, as the kernels round them before their
+    last products."""
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+                  * scale - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - di[..., None])
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def flash_backward_dkv_plain(q, k, v, do, lse, di, scale):
+    """The plain version of K5's dK/dV kernel; returns (dk, dv)."""
+    p, ds = _p_and_ds(q, k, v, do, lse, di, scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, di, scale):
+    """The plain version of K5's dQ kernel."""
+    _, ds = _p_and_ds(q, k, v, do, lse, di, scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale):
+    """Launch K5's dK/dV kernel; returns (dk, dv) bf16."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    bh = _check_flash_inputs({"q": q, "k": k, "v": v, "do": do}, n_q, n_k)
+    _require_f32(lse, "lse", tuple(q.shape[:3]), q.device)
+    _require_f32(di, "di", tuple(q.shape[:3]), q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = cuda_lib.library("flash_backward_dkv").spf_flash_backward_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, n_q, n_k, float(scale), cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts["flash_backward_dkv"] += 1
+    cuda_lib.check(err, "flash_backward_dkv")
+    return dk, dv
+
+
+def flash_backward_dq_cuda(q, k, v, do, lse, di, scale):
+    """Launch K5's dQ kernel; returns dq bf16."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    bh = _check_flash_inputs({"q": q, "k": k, "v": v, "do": do}, n_q, n_k)
+    _require_f32(lse, "lse", tuple(q.shape[:3]), q.device)
+    _require_f32(di, "di", tuple(q.shape[:3]), q.device)
+    dq = torch.empty_like(q)
+    err = cuda_lib.library("flash_backward_dq").spf_flash_backward_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), bh, n_q, n_k,
+        float(scale), cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts["flash_backward_dq"] += 1
+    cuda_lib.check(err, "flash_backward_dq")
+    return dq
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 as a differentiable function: the forward kernel saves O and the
+    rows' log-sum-exp; the backward computes di = rowsum(dO * O) in
+    float32 (outside any kernel, as JAX does) and launches the dK/dV and
+    dQ kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = map(_aligned, (q, k, v))
+        o, lse = flash_forward_cuda(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = _aligned(do.to(q.dtype))
+        di = (do.float() * o.float()).sum(-1)
+        dk, dv = flash_backward_dkv_cuda(q, k, v, do, lse, di, ctx.scale)
+        dq = flash_backward_dq_cuda(q, k, v, do, lse, di, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale):
+    """Exact softmax attention over (b, h, n, d): K5 on CUDA tensors (bf16,
+    d = 64, or it raises), the dense form on CPU tensors."""
+    if q.is_cuda:
+        return _FlashAttention.apply(q, k, v, scale)
+    return _dense(q, k, v, scale)
+
+
+def sdpa(q, k, v, scale, *, flash_min_kv: int | None = None):
+    """Unmasked attention over (b, h, n, d) tensors: flash attention at
+    `flash_min_kv` (default `FLASH_MIN_KV`, read at call time) keys or
+    more, the dense form below."""
+    if flash_min_kv is None:
+        flash_min_kv = FLASH_MIN_KV
     if k.shape[2] >= flash_min_kv:
-        raise NotImplementedError(
-            f"attention over {k.shape[2]} >= {flash_min_kv} keys takes the "
-            "flash kernel (K5), which is not ported yet"
-        )
+        return flash_attention(q, k, v, scale)
     return _dense(q, k, v, scale)
 
 
@@ -36,15 +194,26 @@ def sdpa_view_masked(q, k, v, scale, view_mask, tokens_per_view: int,
                      *, chunk_q: int = 512,
                      chunked_min_kv: int = FLASH_MIN_KV):
     """View-block-masked attention; view_mask (vq, vk) is additive (0/-inf)
-    and token r belongs to view r // tokens_per_view."""
+    and token r belongs to view r // tokens_per_view.  At `chunked_min_kv`
+    keys or more, when chunk_q divides n_q, queries go in chunks of
+    `chunk_q` (logits O(chunk_q * n_k) at a time; exact, since softmax rows
+    are independent)."""
     n_q, n_k = q.shape[2], k.shape[2]
-    if not (n_k < chunked_min_kv or n_q % chunk_q != 0):
-        raise NotImplementedError(
-            f"query-chunked masked attention ({n_k} keys) is not ported yet"
-        )
     l = tokens_per_view
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
-    mask = view_mask.repeat_interleave(l, dim=0).repeat_interleave(l, dim=1)
-    logits = logits + mask[None, None]
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    if n_k < chunked_min_kv or n_q % chunk_q != 0:
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+        mask = view_mask.repeat_interleave(l, dim=0).repeat_interleave(l, dim=1)
+        logits = logits + mask[None, None]
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+    kmask = view_mask.repeat_interleave(l, dim=1)              # (vq, n_k)
+    rows = torch.arange(n_q, device=q.device) // l
+    out = []
+    for c0 in range(0, n_q, chunk_q):
+        qi = q[:, :, c0:c0 + chunk_q]
+        logits = torch.einsum("bhqd,bhkd->bhqk", qi, k).to(torch.float32)
+        logits = logits * scale + kmask[rows[c0:c0 + chunk_q]][None, None]
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        out.append(torch.einsum("bhqk,bhkd->bhqd", probs, v))
+    return torch.cat(out, dim=2)

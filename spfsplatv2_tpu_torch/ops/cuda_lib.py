@@ -31,7 +31,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 # name -> (C function, argtypes); every function returns cudaGetLastError().
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 SIGNATURES = {
     "prefix_scan": {
         "spf_cumsum_i32": [_P, _P, _P, _L, _P],
@@ -46,11 +47,21 @@ SIGNATURES = {
     "segmented_scan": {
         "spf_segmented_scan": [_P, _P, _P, _P, _P, _I, _L, _P],
     },
+    "flash_forward": {
+        "spf_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    },
+    "flash_backward_dkv": {
+        "spf_flash_backward_dkv": [_P] * 8 + [_I, _I, _I, _F, _P],
+    },
+    "flash_backward_dq": {
+        "spf_flash_backward_dq": [_P] * 7 + [_I, _I, _I, _F, _P],
+    },
 }
 
 launch_counts: dict[str, int] = {
     "composite_forward": 0, "composite_backward": 0, "cumsum_1d": 0,
-    "segmented_scan": 0,
+    "segmented_scan": 0, "flash_forward": 0, "flash_backward_dkv": 0,
+    "flash_backward_dq": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -203,9 +203,11 @@ def test_rope_attention_and_resize_match_jax():
     close(attention.sdpa_view_masked(*map(to_torch, (q, k, v)), 0.3,
                                      to_torch(mask), 4),
           jattn.sdpa_view_masked(q, k, v, 0.3, mask, 4))
-    big = torch.zeros((1, 1, 4096, 4))
-    with pytest.raises(NotImplementedError, match="K5"):
-        attention.sdpa(big, big, big, 1.0)
+    # 4096 keys take the flash branch: K5 on CUDA tensors, the dense form
+    # on CPU tensors.
+    big = rng.standard_normal((1, 1, 4096, 4)).astype(np.float32)
+    close(attention.sdpa(*map(to_torch, (big, big, big)), 0.5),
+          jattn.sdpa(big, big, big, 0.5))
     x = rng.standard_normal((2, 5, 7, 3)).astype(np.float32)
     close(resize_bilinear(to_torch(x), (10, 14)), jresize(x, (10, 14)))
 

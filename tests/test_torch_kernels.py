@@ -14,6 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from spfsplatv2_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_backward_dkv_cuda,
+    flash_backward_dkv_plain,
+    flash_backward_dq_cuda,
+    flash_backward_dq_plain,
+    flash_forward_cuda,
+    flash_forward_plain,
+    _dense,
+)
 from spfsplatv2_tpu_torch.ops.covariance import build_covariance
 from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
 from spfsplatv2_tpu_torch.ops import raster_cuda
@@ -62,6 +72,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         segmented_scan_lanes_cuda(torch.zeros(10, 8),
                                   torch.zeros(8, dtype=torch.int32))
+    qkv = [torch.zeros(1, 2, 70, 64, dtype=torch.bfloat16) for _ in range(4)]
+    stats = [torch.zeros(1, 2, 70) for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_forward_cuda(*qkv[:3], 0.125)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_backward_dkv_cuda(*qkv, *stats, 0.125)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_backward_dq_cuda(*qkv, *stats, 0.125)
 
 
 @pytest.mark.cuda
@@ -165,6 +183,72 @@ def test_segscan_accumulation_equals_segsum_on_card(cuda_device, monkeypatch):
                                atol=1e-5)
 
 
+def _flash_inputs(device, b, h, n_q, n_k, seed=0):
+    rng = np.random.default_rng(seed)
+    make = lambda n: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, h, n, 64)).astype(np.float32)).to(
+            device, torch.bfloat16)
+    return make(n_q), make(n_k), make(n_k), make(n_q)
+
+
+def _within(actual, desired, frac):
+    """max |actual - desired| <= frac * max |desired| (float32)."""
+    actual, desired = actual.detach().float(), desired.detach().float()
+    return float((actual - desired).abs().max()) <= frac * float(
+        desired.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n_k", [(4098, 4098), (300, 389), (100, 7)])
+def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
+    """K5's three kernels against their plain versions at ragged lengths
+    (fewer keys than one tile included): O within 1e-2 of max |O| (bf16
+    output, P rounded to bf16 in both) and lse within 1e-4; dQ, dK, dV
+    within 1e-2 of their max."""
+    q, k, v, do = _flash_inputs(cuda_device, 1, 3, n_q, n_k)
+    scale = 0.125
+    o, lse = flash_forward_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_forward_plain(q, k, v, scale)
+    assert _within(o, o_p, 1e-2)
+    assert float((lse - lse_p).abs().max()) <= 1e-4 * float(lse_p.abs().max())
+    di = (do.float() * o.float()).sum(-1)
+    dk, dv = flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
+    dq = flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
+    torch.cuda.synchronize()
+    dk_p, dv_p = flash_backward_dkv_plain(q, k, v, do, lse, di, scale)
+    dq_p = flash_backward_dq_plain(q, k, v, do, lse, di, scale)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert bool(torch.isfinite(got).all())
+        assert _within(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_dense(cuda_device):
+    """The autograd function (K5 forward, dK/dV and dQ kernels) against
+    autograd through the dense form in float32 on the same bf16 inputs,
+    within 2e-2 of each max (the kernels round P and dS to bf16)."""
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+
+    q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cuda_lib.reset_launch_counts()
+    out = flash_attention(*leaves, 0.125)
+    grads = torch.autograd.grad(out, leaves, do)
+    counts = {n: cuda_lib.launch_counts[n] for n in
+              ("flash_forward", "flash_backward_dkv", "flash_backward_dq")}
+    assert counts == {"flash_forward": 1, "flash_backward_dkv": 1,
+                      "flash_backward_dq": 1}
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = _dense(*ref_leaves, 0.125)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    assert _within(out, ref, 2e-2)
+    for got, want in zip(grads, ref_grads):
+        assert _within(got, want, 2e-2)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*[t[..., :32].contiguous() for t in (q, k, v)], 0.125)
+
+
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, imports in a process
     where jax, flax and the JAX package cannot be imported."""
@@ -191,7 +275,8 @@ def test_port_imports_without_jax():
                                        "spfsplatv2_tpu_torch."):
             importlib.import_module(m.name)
         import chip_smoke
-        for name in ("spfsplatv2_tpu_torch.training.step",
+        for name in ("spfsplatv2_tpu_torch.ops.attention",
+                     "spfsplatv2_tpu_torch.training.step",
                      "spfsplatv2_tpu_torch.training.optim",
                      "spfsplatv2_tpu_torch.losses.lpips",
                      "spfsplatv2_tpu_torch.losses.reproj",
