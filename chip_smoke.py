@@ -46,7 +46,11 @@ Phases, each printing JSON lines:
      patches a view, so every self-attention has 4096 or 4098 keys and
      takes K5) through `evaluate_example` with the quantized depth key,
      launch counts read around exactly those requests; then one encoder
-     block's real q, k, v through K5 against the plain version;
+     block's real q, k, v through K5 against the plain version, and, on
+     the first request's 2 x 1024^2 Gaussians and pose, the render
+     through K1 and K3 against the same render through their plain
+     versions on the card, K3 on each of the binning's real inputs, and
+     K2 on that camera's bins against its plain version;
  12. the training path: 3 steps of `make_train_step` on the full-width
      encoder (remat on, seeded LPIPS, the re10k optimizer recipe) at the
      flagship batch, b = 16 of 2 context + 1 target at 256^2, with the
@@ -65,6 +69,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -168,6 +173,47 @@ def max_err(actual, desired) -> dict:
     diff = (actual - desired).abs()
     return {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
             "ref_max_abs": float(desired.abs().max())}
+
+
+@contextlib.contextmanager
+def plain_dispatch(raster_tiled, raster_cuda, cumsum_1d_plain, scans: list):
+    """Route the rasterizer's K1 and K3 dispatchers to their plain versions
+    on the card's tensors, recording each prefix sum's input in `scans`."""
+    def scan(x):
+        scans.append(x)
+        return cumsum_1d_plain(x)
+
+    saved = raster_tiled.cumsum_1d, raster_cuda.composite_forward
+    raster_tiled.cumsum_1d = scan
+    raster_cuda.composite_forward = raster_cuda.composite_forward_plain
+    try:
+        yield
+    finally:
+        raster_tiled.cumsum_1d, raster_cuda.composite_forward = saved
+
+
+def check_k2_rows(accumulate_rows, rows_k, rows_p, bins, g: int,
+                  where: str) -> dict:
+    """K2's rows against its plain version's: at most 1e-3 of the live rows
+    off by more than 1e-4 of their field's max, nothing written past
+    n_live, and the per-Gaussian sums within 2e-3 of their field's max."""
+    n_live = int(bins.n_live)
+    diff = (rows_k - rows_p).abs()
+    bad_rows = int((diff > 1e-4 * rows_p.abs().amax(0)).any(-1).sum())
+    if bad_rows > 1e-3 * n_live:
+        fail(f"K2 rows vs plain ({where}): {bad_rows} of {n_live} rows over "
+             "1e-4 x max")
+    if float(rows_k[n_live:].abs().max()) != 0.0:
+        fail(f"K2 wrote past n_live ({where})")
+    per_g_k = accumulate_rows(rows_k, bins, g)
+    per_g_p = accumulate_rows(rows_p, bins, g)
+    per_g_err = (per_g_k - per_g_p).abs()
+    if bool((per_g_err > 2e-3 * per_g_p.abs().amax(0)).any()):
+        fail(f"K2 per-Gaussian sums vs plain ({where}): max "
+             f"{float(per_g_err.max())}")
+    return {"n_live": n_live, "rows_over_1e-4_of_max": bad_rows,
+            "rows_max_abs_err": float(diff.max()),
+            "per_gaussian_max_abs_err": float(per_g_err.max())}
 
 
 def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
@@ -281,10 +327,14 @@ def main() -> int:
         disable_tf32,
         evaluate_example,
     )
-    from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
+    from spfsplatv2_tpu_torch.models.decoder import (
+        LONG_CONTEXT_DECODER,
+        DecoderConfig,
+        decode_splatting,
+    )
     from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
-    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
+    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda, raster_tiled
     from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
     from spfsplatv2_tpu_torch.ops.raster_cuda import (
         accumulate_rows,
@@ -293,10 +343,11 @@ def main() -> int:
         composite_forward_cuda,
         composite_forward_plain_work,
         composite_prefix,
+        packed_rows,
     )
     from spfsplatv2_tpu_torch.ops.raster_ref import composite_reference
     from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
-    from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig, entry_budget
+    from spfsplatv2_tpu_torch.ops.rasterizer import entry_budget
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
     from spfsplatv2_tpu_torch.training.step import (
         LossConfig,
@@ -337,7 +388,9 @@ def main() -> int:
 
     # ---- 3. K3: cumsum_1d ---------------------------------------------
     checks = []
-    for n in (131072, 100003):
+    # The 256^2 path's n, a ragged n, and the 1024^2 path's n = 2 x 1024^2
+    # (block totals past one block: the multi-pass carry).
+    for n in (131072, 100003, 1 << 21):
         xi = torch.randint(-3, 9, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
         ki, pi = cumsum_1d_cuda(xi), cumsum_1d_plain(xi)
@@ -570,17 +623,8 @@ def main() -> int:
     rows_k = composite_backward_cuda(*bwd_args)
     torch.cuda.synchronize()
     rows_p = composite_backward_plain(*bwd_args)
-    field_max = rows_p.abs().amax(0)
-    bad_rows = int(((rows_k - rows_p).abs() > 1e-4 * field_max).any(-1).sum())
-    if bad_rows > 1e-3 * n_live:
-        fail(f"K2 rows vs plain: {bad_rows} of {n_live} rows over 1e-4 x max")
-    if float(rows_k[n_live:].abs().max()) != 0.0:
-        fail("K2 wrote past n_live")
-    per_g_k = accumulate_rows(rows_k, bins, g)
-    per_g_p = accumulate_rows(rows_p, bins, g)
-    per_g_err = (per_g_k - per_g_p).abs()
-    if bool((per_g_err > 2e-3 * per_g_p.abs().amax(0)).any()):
-        fail(f"K2 per-Gaussian sums vs plain: max {float(per_g_err.max())}")
+    k2_check = check_k2_rows(accumulate_rows, rows_k, rows_p, bins, g,
+                             "synthetic scene")
     # Gradients of the 64^2 scene (phase 4's oracle scene, non-black
     # background) through K1 + K2 against the dense oracle's autograd.
     leaves = {k: getattr(sproj, k).detach().clone().requires_grad_(True)
@@ -617,16 +661,13 @@ def main() -> int:
         "plain_ms": time_ms(torch, lambda: composite_backward_plain(*bwd_args),
                             2, warmup=1),
         "library_ms": None,
-        "max_abs_err": float((per_g_k - per_g_p).abs().max()),
+        "max_abs_err": k2_check["per_gaussian_max_abs_err"],
         "bound_ms": max(k2_bytes / H100_BYTES_PER_S,
                         k2_ops / H100_FP32_PER_S) * 1e3,
         "bound_by": ("bytes" if k2_bytes / H100_BYTES_PER_S
                      >= k2_ops / H100_FP32_PER_S else "operations"),
     }
-    emit({"phase": "K2", "g": g, "n_live": n_live, "e_pad": bins.e_pad,
-          "rows_over_1e-4_of_max": bad_rows,
-          "rows_max_abs_err": float((rows_k - rows_p).abs().max()),
-          "per_gaussian_max_abs_err": k2["max_abs_err"],
+    emit({"phase": "K2", "g": g, "e_pad": bins.e_pad, **k2_check,
           "vs_oracle_64px_max_abs_err": k2_oracle,
           "bound_bytes": k2_bytes, "bound_ops": k2_ops, **k2})
 
@@ -698,8 +739,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. the long-context serving path (1024^2) -------------------
-    long_dec = DecoderConfig(rasterizer=RasterizerConfig(
-        entry_budget_factor=4.0, depth_key="quantized"))
+    long_dec = LONG_CONTEXT_DECODER
     long_size = (HW_LONG, HW_LONG)
     evaluate_example(encoder, request(-2, HW_LONG), long_size, long_dec,
                      eval_cfg, device=dev)
@@ -749,8 +789,8 @@ def main() -> int:
     try:
         with torch.no_grad():
             c, t = long_requests[0]["context"], long_requests[0]["target"]
-            encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
-                    t["intrinsics"][None])
+            long_out = encoder(c["image"][None], c["intrinsics"][None],
+                               t["image"][None], t["intrinsics"][None])
     finally:
         attention.flash_attention = flash_inner
     if len(captured) != K5_PER_PASS:
@@ -771,6 +811,74 @@ def main() -> int:
           "encoder_block12_qkv": {"shape": list(bq.shape), **real_check},
           "seconds_total": time.perf_counter() - t_start})
     del long_results
+
+    # That request's render (the encoder pass above: its Gaussians and
+    # pose) through K1 and K3 against the same render with both
+    # dispatchers routed to their plain versions on the card's tensors,
+    # with phase 4's bars (depth's relative to its max); K3 exact on each
+    # prefix sum's real input.
+    pose = long_out["extrinsics_cwt"][:, 2:]
+    cams_args = (pose, t["intrinsics"][None], t["near"][None],
+                 t["far"][None], long_size, long_dec)
+    scans = []
+    with torch.no_grad():
+        kern = decode_splatting(long_out["gaussians"], *cams_args)
+        cuda_lib.reset_launch_counts()
+        with plain_dispatch(raster_tiled, raster_cuda, cumsum_1d_plain, scans):
+            plain = decode_splatting(long_out["gaussians"], *cams_args)
+    if cuda_lib.launch_counts["composite_forward"] or cuda_lib.launch_counts[
+            "cumsum_1d"] or not scans:
+        fail(f"1024^2 plain render: launches {dict(cuda_lib.launch_counts)}, "
+             f"{len(scans)} prefix sums")
+    depth_max = float(plain.depth.abs().max())
+    render_check = {}
+    for name, a, b, atol, hard in (
+            ("color", kern.color, plain.color, 3e-5, 5e-3),
+            ("depth", kern.depth, plain.depth, 6e-5 * depth_max,
+             4e-3 * depth_max),
+            ("alpha", kern.alpha, plain.alpha, 3e-5, 5e-3)):
+        diff = (a - b).abs()
+        frac_ok = float((diff <= atol).float().mean())
+        render_check[name] = {"max_abs_err": float(diff.max()),
+                              "frac_within": frac_ok, "atol": atol}
+        if not bool(torch.isfinite(a).all()) or float(diff.max()) > hard \
+                or frac_ok < 0.999:
+            fail(f"1024^2 render {name} vs plain: {render_check[name]}")
+    for x in scans:
+        if not torch.equal(cumsum_1d_cuda(x), cumsum_1d_plain(x)):
+            fail(f"K3 differs from torch.cumsum on the 1024^2 binning's "
+                 f"input, n={x.shape[0]}")
+    scan_ns = [x.shape[0] for x in scans]
+    del kern, plain, scans
+    # K2 on that camera's projection and bins, with seeded cotangents.
+    g_long = long_out["gaussians"].means.shape[1]
+    inv_near = 1.0 / t["near"][0]
+    cam = pose[0, 0].clone()
+    cam[:3, 3] = cam[:3, 3] * inv_near
+    g0 = long_out["gaussians"].map(lambda a: a[0])
+    lproj = project_gaussians(g0.means * inv_near, g0.covariances * inv_near**2,
+                              g0.harmonics, g0.opacities, cam,
+                              t["intrinsics"][0], long_size)
+    lr = long_dec.rasterizer
+    lbins = bin_gaussians_prefix(
+        lproj, long_size, lr.max_tiles_per_gaussian, lr.chunk,
+        entry_budget(lr, g_long), lr.base_tiles_per_gaussian,
+        lr.big_pool_factor, lr.depth_key)
+    largs = (packed_rows(lproj), lbins.src, lbins.counts, lbins.starts,
+             lbins.num_tiles_xy[1])
+    lfwd = composite_forward_cuda(*largs)
+    lcot = torch.randn(lfwd.shape, generator=gen, device=dev)
+    lrows_k = composite_backward_cuda(*largs, lfwd, lcot)
+    torch.cuda.synchronize()
+    lrows_p = composite_backward_plain(*largs, lfwd, lcot)
+    k2_long = check_k2_rows(accumulate_rows, lrows_k, lrows_p, lbins, g_long,
+                            "1024^2 camera")
+    emit({"phase": "check_1024", "g": g_long,
+          "n_tiles": lbins.counts.shape[0], "e_pad": lbins.e_pad,
+          "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
+          "k2_vs_plain": k2_long,
+          "seconds_total": time.perf_counter() - t_start})
+    del long_out, g0, lproj, lbins, largs, lfwd, lcot, lrows_k, lrows_p
     torch.cuda.empty_cache()
 
     # ---- 12. the training path ----------------------------------------
@@ -918,14 +1026,19 @@ def main() -> int:
          "launches_by_path": by_path("composite_forward"), **k1,
          "check": {"vs_plain_outlier_pixels": sum(
              v["outliers"] for v in k1_check.values()),
-                   "vs_oracle_64px_max_abs_err": max(oracle.values())}},
+                   "vs_oracle_64px_max_abs_err": max(oracle.values()),
+                   "render_1024_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in render_check.items()}}},
         {"name": "composite_backward", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/composite_backward.cu",
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:295",
          "launches": train_counts["composite_backward"],
          "launches_by_path": by_path("composite_backward"), **k2,
-         "check": {"vs_plain_rows_over_1e-4_of_max": bad_rows,
-                   "vs_oracle_64px_max_abs_err": max(k2_oracle.values())}},
+         "check": {"vs_plain_rows_over_1e-4_of_max":
+                   k2_check["rows_over_1e-4_of_max"],
+                   "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),
+                   "camera_1024_vs_plain": k2_long}},
         {"name": "cumsum_1d", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:108",
@@ -933,7 +1046,8 @@ def main() -> int:
          "launches_by_path": by_path("cumsum_1d"), **k3,
          "check": {"int32_exact": all(c["int32_exact"] for c in checks),
                    "f32_max_abs_err": max(c["f32_max_abs_err"]
-                                          for c in checks)}},
+                                          for c in checks),
+                   "int32_exact_on_1024_binning_inputs_n": scan_ns}},
         {"name": "segmented_scan", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/segmented_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:32",

@@ -28,18 +28,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
-from spfsplatv2_tpu_torch.models.decoder import DecoderConfig
+from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, LONG_CONTEXT_DECODER
 from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
-from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig
 
 ALIGN_STEPS = 10
-# Image size -> (decoder config, train batch).  At 1024^2 the rank depth
-# key overflows the 31-bit binning key, so the quantized key is used.
-SIZES = {
-    256: (DecoderConfig(), 16),
-    1024: (DecoderConfig(rasterizer=RasterizerConfig(
-        entry_budget_factor=4.0, depth_key="quantized")), 2),
-}
+# Image size -> (decoder config, train batch).
+SIZES = {256: (DecoderConfig(), 16), 1024: (LONG_CONTEXT_DECODER, 2)}
 
 
 def _views(gen, b, offsets, hw, device) -> dict:

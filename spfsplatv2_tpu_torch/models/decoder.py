@@ -26,6 +26,15 @@ class DecoderConfig:
     )
 
 
+# The decoder of the long-context path (1024^2 views, where every
+# self-attention takes flash attention): 2 x 1024^2 Gaussians need 21 bits
+# of depth rank and 4096 tiles 13 bits of tile id, over the binning's
+# 31-bit key, so the binning takes the quantized depth key, as the JAX
+# package's error message directs (spfsplatv2_tpu/ops/raster_tiled.py).
+LONG_CONTEXT_DECODER = DecoderConfig(rasterizer=RasterizerConfig(
+    entry_budget_factor=4.0, depth_key="quantized"))
+
+
 @dataclass
 class DecoderOutput:
     color: torch.Tensor  # (b, v, h, w, 3)

@@ -181,8 +181,14 @@ def flash_attention(q, k, v, scale):
 
 def sdpa(q, k, v, scale, *, flash_min_kv: int | None = None):
     """Unmasked attention over (b, h, n, d) tensors: flash attention at
-    `flash_min_kv` (default `FLASH_MIN_KV`, read at call time) keys or
-    more, the dense form below."""
+    `flash_min_kv` keys or more, the dense form below.
+
+    Unlike JAX's `sdpa`, whose default `flash_min_kv=FLASH_MIN_KV` is
+    bound when the function is defined, the default here (None) reads
+    the module's `FLASH_MIN_KV` at call time, on purpose: lowering that
+    constant sends a whole model's self-attention down the flash branch,
+    which the CPU slice test and the rehearsal of `chip_smoke.py` rely
+    on (assigning JAX's constant changes nothing)."""
     if flash_min_kv is None:
         flash_min_kv = FLASH_MIN_KV
     if k.shape[2] >= flash_min_kv:

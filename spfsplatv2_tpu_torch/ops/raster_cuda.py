@@ -340,6 +340,20 @@ def untile(x: torch.Tensor, num_tiles_xy: tuple[int, int],
     return x[:h, :w]
 
 
+def packed_rows(proj: ProjectedGaussians) -> torch.Tensor:
+    """The kernels' (g, NUM_FIELDS) float32 rows; non-finite means and
+    depths (Gaussians the binning leaves out) become 0."""
+    depth_safe = torch.where(torch.isfinite(proj.depth), proj.depth,
+                             torch.zeros_like(proj.depth))
+    xy_safe = torch.where(torch.isfinite(proj.xy), proj.xy,
+                          torch.zeros_like(proj.xy))
+    return torch.cat(
+        [xy_safe, proj.conic, proj.color, proj.opacity[:, None],
+         depth_safe[:, None]],
+        dim=-1,
+    ).to(torch.float32).contiguous()
+
+
 def composite_prefix(
     proj: ProjectedGaussians,
     bins: PrefixBins,
@@ -349,15 +363,7 @@ def composite_prefix(
 ):
     """Composite one camera; returns (color (h, w, 3), depth, alpha)."""
     tiles_y, tiles_x = bins.num_tiles_xy
-    depth_safe = torch.where(torch.isfinite(proj.depth), proj.depth,
-                             torch.zeros_like(proj.depth))
-    xy_safe = torch.where(torch.isfinite(proj.xy), proj.xy,
-                          torch.zeros_like(proj.xy))
-    packed = torch.cat(
-        [xy_safe, proj.conic, proj.color, proj.opacity[:, None],
-         depth_safe[:, None]],
-        dim=-1,
-    ).to(torch.float32).contiguous()                     # (g, NUM_FIELDS)
+    packed = packed_rows(proj)
     out = _PrefixComposite.apply(packed, bins, tiles_x, chunk)  # (n_tiles, 256, 8)
     color_t = out[..., 0:3] + out[..., 5:6] * background[None, None, :]
     return (

@@ -19,6 +19,7 @@ with different accumulation orders) and 3e-2 against `mha_reference`,
 which also keeps the softmax numerator in bfloat16.
 """
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -40,9 +41,8 @@ from spfsplatv2_tpu.models.decoder import DecoderConfig as JDecoderConfig
 from spfsplatv2_tpu.ops import attention as jattn
 from spfsplatv2_tpu.ops.rasterizer import RasterizerConfig as JRasterizerConfig
 from spfsplatv2_tpu_torch.evaluation import evaluator
-from spfsplatv2_tpu_torch.models.decoder import DecoderConfig
+from spfsplatv2_tpu_torch.models.decoder import LONG_CONTEXT_DECODER
 from spfsplatv2_tpu_torch.ops import attention, cuda_lib
-from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_torch_slice import HW, make_example  # noqa: E402
@@ -84,6 +84,13 @@ def _padded_reference(n_q, n_k, q_scale=1.0, sm_scale=SCALE):
     return f
 
 
+def _jit_in_f32(dtype, fn):
+    """`jax.jit(fn)` in float32 (one compile instead of one per eager op);
+    eager in bfloat16, where XLA's CPU fusions would keep intermediates in
+    float32 that JAX's eager ops, like the port, round to bfloat16."""
+    return jax.jit(fn) if dtype == "float32" else fn
+
+
 def _rel_err(actual, desired):
     a = np.asarray(actual, np.float32)
     d = np.asarray(jnp.asarray(desired).astype(jnp.float32))
@@ -118,9 +125,10 @@ def test_sdpa_flash_branch_matches_jax(flash_calls, n_q, n_k, dtype):
     assert all(c == 0 for c in cuda_lib.launch_counts.values())
     assert out.dtype == tv.dtype and tuple(out.shape) == (2, 3, n_q, 64)
     got = out.float().numpy()
-    dense = jattn.sdpa(jq, jk, jv, SCALE, flash_min_kv=256)
+    dense, ref = _jit_in_f32(dtype, lambda a, b, c: (
+        jattn.sdpa(a, b, c, SCALE, flash_min_kv=256),
+        _padded_reference(n_q, n_k)(a, b, c)))(jq, jk, jv)
     assert _rel_err(got, dense) <= TOL_JAX[dtype]
-    ref = _padded_reference(n_q, n_k)(jq, jk, jv)
     assert _rel_err(got, ref) <= TOL_REF[dtype]
 
 
@@ -135,11 +143,12 @@ def test_sdpa_flash_branch_gradients_match_jax(flash_calls, n_q, n_k, dtype):
     out = attention.sdpa(tq, tk, tv, SCALE, flash_min_kv=256)
     assert len(flash_calls) == 1
     grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do).to(tdt))
-    _, vjp = jax.vjp(lambda a, b, c: jattn.sdpa(a, b, c, SCALE,
-                                                flash_min_kv=256), jq, jk, jv)
+    dense = lambda a, b, c: jattn.sdpa(a, b, c, SCALE, flash_min_kv=256)  # noqa: E731
     # mha_reference's own VJP takes sm_scale = 1 only: scale q instead.
-    _, vjp_ref = jax.vjp(_padded_reference(n_q, n_k, SCALE, 1.0), jq, jk, jv)
-    for name, g, gj, gr in zip("qkv", grads, vjp(jdo), vjp_ref(jdo)):
+    ref = _padded_reference(n_q, n_k, SCALE, 1.0)
+    vjps = _jit_in_f32(dtype, lambda a, b, c, d: (
+        jax.vjp(dense, a, b, c)[1](d), jax.vjp(ref, a, b, c)[1](d)))
+    for name, g, gj, gr in zip("qkv", grads, *vjps(jq, jk, jv, jdo)):
         assert g.dtype == tdt
         assert _rel_err(g.float().numpy(), gj) <= TOL_JAX[dtype], name
         assert _rel_err(g.float().numpy(), gr) <= TOL_REF[dtype], name
@@ -153,8 +162,12 @@ def test_flash_plain_versions_match_jax(n_q, n_k):
     q, k, v, do = _inputs(n_q, n_k, seed=2)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
     o, lse = attention.flash_forward_plain(tq, tk, tv, SCALE)
-    jo, vjp = jax.vjp(lambda a, b, c: jattn.sdpa(a, b, c, SCALE),
-                      *map(jnp.asarray, (q, k, v)))
+
+    def jax_ref(a, b, c, d):
+        out, vjp = jax.vjp(lambda *x: jattn.sdpa(*x, SCALE), a, b, c)
+        return out, vjp(d)
+
+    jo, jgrads = jax.jit(jax_ref)(*map(jnp.asarray, (q, k, v, do)))
     assert _rel_err(o.numpy(), jo) <= 1e-5
     logits = np.einsum("bhqd,bhkd->bhqk", q, k) * SCALE
     np.testing.assert_allclose(
@@ -162,7 +175,7 @@ def test_flash_plain_versions_match_jax(n_q, n_k):
     di = (tdo * o).sum(-1)
     dk, dv = attention.flash_backward_dkv_plain(tq, tk, tv, tdo, lse, di, SCALE)
     dq = attention.flash_backward_dq_plain(tq, tk, tv, tdo, lse, di, SCALE)
-    for name, g, gj in zip("qkv", (dq, dk, dv), vjp(jnp.asarray(do))):
+    for name, g, gj in zip("qkv", (dq, dk, dv), jgrads):
         assert _rel_err(g.numpy(), gj) <= 1e-5, name
 
 
@@ -189,13 +202,18 @@ def test_view_masked_chunked_matches_jax(num_target, chunk_q):
     kw = dict(chunk_q=chunk_q, chunked_min_kv=32)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l, **kw)
-    jout, vjp = jax.vjp(lambda a, b, c: jattn.sdpa_view_masked(
-        a, b, c, SCALE, jmask, l, **kw), *map(jnp.asarray, (q, k, v)))
+
+    def jax_ref(a, b, c, d):
+        jout, vjp = jax.vjp(lambda *x: jattn.sdpa_view_masked(
+            *x, SCALE, jmask, l, **kw), a, b, c)
+        return jout, vjp(d)
+
+    jout, jgrads = jax.jit(jax_ref)(*map(jnp.asarray, (q, k, v, do)))
     assert _rel_err(out.detach().numpy(), jout) <= 1e-5
     dense = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l)
     torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-6)
     grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
-    for name, g, gj in zip("qkv", grads, vjp(jnp.asarray(do))):
+    for name, g, gj in zip("qkv", grads, jgrads):
         assert _rel_err(g.numpy(), gj) <= 1e-5, name
 
 
@@ -209,17 +227,20 @@ def test_evaluate_example_flash_branch_matches_jax(flash_calls, monkeypatch,
     jenc = jax_tiny_encoder()
     params = random_flax_params(jenc, 2, c["image"][None], c["intrinsics"][None],
                                 t["image"][None], t["intrinsics"][None])
-    raster = dict(entry_budget_factor=4.0, chunk=64, depth_key="quantized")
+    # The long-context path's rasterizer, at the slice test's chunk.
+    raster = dataclasses.replace(LONG_CONTEXT_DECODER.rasterizer, chunk=64)
     jres = jeval.evaluate_example(
         jenc, params, example, HW,
-        JDecoderConfig(rasterizer=JRasterizerConfig(backend="pallas", **raster)),
+        JDecoderConfig(rasterizer=JRasterizerConfig(
+            backend="pallas", entry_budget_factor=raster.entry_budget_factor,
+            chunk=raster.chunk, depth_key=raster.depth_key)),
         jeval.EvalConfig(per_target_encoding=True, save_images=True,
                          output_path=str(tmp_path)))
     monkeypatch.setattr(attention, "FLASH_MIN_KV", 1)
     cuda_lib.reset_launch_counts()
     tres = evaluator.evaluate_example(
         torch_tiny_encoder(params), example, HW,
-        DecoderConfig(rasterizer=RasterizerConfig(**raster)),
+        dataclasses.replace(LONG_CONTEXT_DECODER, rasterizer=raster),
         evaluator.EvalConfig(per_target_encoding=True), device="cpu")
     # One encoder pass: 2 encoder blocks + 2 x 2 decoder blocks, each with
     # one self-attention.

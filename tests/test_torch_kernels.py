@@ -199,12 +199,16 @@ def _within(actual, desired, frac):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_q,n_k", [(4098, 4098), (300, 389), (100, 7)])
+@pytest.mark.parametrize("n_q,n_k",
+                         [(4098, 4098), (300, 389), (100, 7), (64, 1)])
 def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
     """K5's three kernels against their plain versions at ragged lengths
     (fewer keys than one tile included): O within 1e-2 of max |O| (bf16
     output, P rounded to bf16 in both) and lse within 1e-4; dQ, dK, dV
-    within 1e-2 of their max."""
+    within 1e-2 of their max.  With one key, P = 1 and dS = P (dP - di)
+    is zero up to the rounding of two float32 sums in different orders,
+    so dQ and dK are zero up to rounding: a bar relative to their max
+    means nothing there, and they are held within 1e-3 absolute."""
     q, k, v, do = _flash_inputs(cuda_device, 1, 3, n_q, n_k)
     scale = 0.125
     o, lse = flash_forward_cuda(q, k, v, scale)
@@ -218,9 +222,14 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
     torch.cuda.synchronize()
     dk_p, dv_p = flash_backward_dkv_plain(q, k, v, do, lse, di, scale)
     dq_p = flash_backward_dq_plain(q, k, v, do, lse, di, scale)
-    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-        assert bool(torch.isfinite(got).all())
-        assert _within(got, want, 1e-2)
+    for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p),
+                            ("dv", dv, dv_p)):
+        assert bool(torch.isfinite(got).all()), name
+        if n_k == 1 and name != "dv":
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= 1e-3, (name, err)
+        else:
+            assert _within(got, want, 1e-2), name
 
 
 @pytest.mark.cuda
