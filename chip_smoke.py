@@ -41,7 +41,8 @@ Phases, each printing JSON lines:
      dK and dV against their plain versions, the autograd function
      against autograd through the dense form; timed beside the plain
      versions and `torch.nn.functional.scaled_dot_product_attention`
-     (the yardstick; the port never calls it);
+     (the yardstick; the port never calls it), each kernel's TFLOP/s
+     beside its bound;
  11. the long-context serving path: 3 requests at 1024^2 (64 x 64
      patches a view, so every self-attention has 4096 or 4098 keys and
      takes K5) through `evaluate_example` with the quantized depth key,
@@ -59,7 +60,10 @@ Phases, each printing JSON lines:
      reaches K4;
  13. the long-context training path: 2 steps at 1024^2, b = 2, with the
      launch counts (K5's backward kernels included) read around exactly
-     those steps.
+     those steps, and the (b, h, n_q, n_k) that their autograd gave K5's
+     backward kernels; then K5's backward pair at each of those shapes
+     (phase "K5_train"): the first batch element held against the plain
+     versions, both kernels timed beside SDPA's backward.
 Then the kernels line (each kernel's times, bound, launches on its path
 and check results), the card's name and power limit, and the result.
 
@@ -216,6 +220,21 @@ def check_k2_rows(accumulate_rows, rows_k, rows_p, bins, g: int,
             "per_gaussian_max_abs_err": float(per_g_err.max())}
 
 
+def k5_inputs(torch, attention, shape: tuple, gen, dev) -> tuple:
+    """Seeded N(0, 1) bf16 q, k, v and cotangent dO at (b, h, n_q, n_k)
+    with head dim 64, K5's forward O and lse on them, and di = rowsum(dO
+    * O) as the autograd function computes it."""
+    b, h, n_q, n_k = shape
+
+    def make(n):
+        return torch.randn(b, h, n, 64, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
+    o, lse = attention.flash_forward_cuda(q, k, v, 64**-0.5)
+    return q, k, v, do, o, lse, (do.float() * o.float()).sum(-1)
+
+
 def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
     """K5's three kernels against their plain versions, and the autograd
     function against autograd through the float32 dense form, at one path shape
@@ -225,14 +244,7 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
 
     b, h, n_q, n_k = shape
     scale = 64**-0.5
-
-    def make(n):
-        return torch.randn(b, h, n, 64, generator=gen, device=dev).to(
-            torch.bfloat16)
-
-    q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
-    o, lse = attention.flash_forward_cuda(q, k, v, scale)
-    di = (do.float() * o.float()).sum(-1)
+    q, k, v, do, o, lse, di = k5_inputs(torch, attention, shape, gen, dev)
     dk, dv = attention.flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
     dq = attention.flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
     torch.cuda.synchronize()
@@ -298,8 +310,10 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
     for key in ("flash_backward_dkv", "flash_backward_dq"):
         times[key]["library_ms"] = sdpa_bwd
     for key, t in times.items():
-        t["bound_ms"] = K5_FLOPS[key] * b * h * n_q * n_k * 64 / H100_BF16_PER_S * 1e3
+        flops = K5_FLOPS[key] * b * h * n_q * n_k * 64
+        t["bound_ms"] = flops / H100_BF16_PER_S * 1e3
         t["bound_by"] = "operations"
+        t["tflops"] = flops / t["ms"] / 1e9
     times["flash_forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
     times["flash_backward_dkv"]["max_abs_err"] = max(
         checks["dk"]["max_abs_err"], checks["dv"]["max_abs_err"])
@@ -311,6 +325,47 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
     return {"shape": list(shape), "vs_plain": checks,
             "vs_dense_f32_autograd": dense,
             "kernels": times, "fwd_bwd_ms": fwd_bwd_ms}
+
+
+def k5_train_shape(torch, attention, shape: tuple, gen, dev) -> dict:
+    """K5's backward pair at one shape that a 1024^2 train step's autograd
+    gave it, on seeded inputs: the first batch element held against the
+    plain versions (the whole batch's float32 logits would take tens of
+    GB), both kernels timed beside SDPA's backward."""
+    import torch.nn.functional as F
+
+    b, h, n_q, n_k = shape
+    scale = 64**-0.5
+    q, k, v, do, _, lse, di = k5_inputs(torch, attention, shape, gen, dev)
+    args = (q, k, v, do, lse, di, scale)
+    dk, dv = attention.flash_backward_dkv_cuda(*args)
+    dq = attention.flash_backward_dq_cuda(*args)
+    torch.cuda.synchronize()
+    first = [x[:1] for x in args[:6]] + [scale]
+    dk_p, dv_p = attention.flash_backward_dkv_plain(*first)
+    dq_p = attention.flash_backward_dq_plain(*first)
+    checks = {"dq": max_err(dq[:1], dq_p), "dk": max_err(dk[:1], dk_p),
+              "dv": max_err(dv[:1], dv_p)}
+    for key, c in checks.items():
+        if not c["max_abs_err"] <= K5_TOL * c["ref_max_abs"]:
+            fail(f"K5 {key} at train shape {shape} vs plain: {c}")
+    del dk, dv, dq, dk_p, dv_p, dq_p
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    kernels = {}
+    for name in ("flash_backward_dkv", "flash_backward_dq"):
+        fn = getattr(attention, f"{name}_cuda")
+        ms = time_ms(torch, lambda fn=fn: fn(*args), 10)
+        flops = K5_FLOPS[name] * b * h * n_q * n_k * 64
+        kernels[name] = {"ms": ms, "tflops": flops / ms / 1e9,
+                         "bound_ms": flops / H100_BF16_PER_S * 1e3,
+                         "bound_by": "operations", "library_ms": sdpa_bwd}
+    return {"shape": list(shape), "vs_plain_first_batch": checks,
+            "kernels": kernels,
+            "pair_ms": sum(t["ms"] for t in kernels.values()),
+            "sdpa_backward_ms": sdpa_bwd}
 
 
 def main() -> int:
@@ -978,8 +1033,22 @@ def main() -> int:
                                       LossConfig(), lpips,
                                       microbatch=LONG_MICROBATCH)
     long_batches = [train_batch(10 + i, LONG_BATCH, HW_LONG) for i in range(2)]
+    # The shapes that the steps' autograd gives K5's backward kernels,
+    # recorded on the way through (the launch counts stay the wrapper's).
+    bwd_shapes = []
+    dkv_inner = attention.flash_backward_dkv_cuda
+
+    def capture_dkv(q_, k_, *rest):
+        bwd_shapes.append((*q_.shape[:3], k_.shape[2]))
+        return dkv_inner(q_, k_, *rest)
+
+    attention.flash_backward_dkv_cuda = capture_dkv
     cuda_lib.reset_launch_counts()
-    long_steps = [run_step(batch, long_train_step) for batch in long_batches]
+    try:
+        long_steps = [run_step(batch, long_train_step)
+                      for batch in long_batches]
+    finally:
+        attention.flash_backward_dkv_cuda = dkv_inner
     long_train_counts = dict(cuda_lib.launch_counts)
     # Each microbatch pass (LONG_BATCH // LONG_MICROBATCH a step, 2 steps)
     # runs the encoder forward once and, under remat, again in the
@@ -1003,13 +1072,21 @@ def main() -> int:
           "peak_bytes": max(st["peak_bytes"] for st in long_steps),
           "branches": [st["branch"] for st in long_steps],
           "seconds_total": time.perf_counter() - t_start})
+    del long_batches, long_steps
+    torch.cuda.empty_cache()
+    k5_train = {}
+    for shape in dict.fromkeys(bwd_shapes):
+        k5_train[shape] = k5_train_shape(torch, attention, shape, gen, dev)
+        emit({"phase": "K5_train", "calls_per_2_steps": bwd_shapes.count(shape),
+              **k5_train[shape]})
 
     # ---- kernels line, card, result -----------------------------------
     # Launches: each kernel's count over its path: K1-K3 over the training
     # path's 3 steps, K4 over the segscan step, K5's forward over the 3
     # requests at 1024^2, its backward kernels over the 2 train steps at
     # 1024^2; the other paths' counts beside them.  K5's times are those
-    # at the encoder's shape (phase 10 has all three).
+    # at the encoder's shape (phase 10 has all three); the backward
+    # kernels' entries add their times at the train step's shapes.
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
              "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
              "serving_1024_3_requests": long_counts,
@@ -1063,6 +1140,10 @@ def main() -> int:
            "launches_by_path": by_path(name),
            **k5["encoder"]["kernels"][name],
            "shape": k5["encoder"]["shape"],
+           **({"at_train_shapes": [
+               {"shape": list(shape), **res["kernels"][name]}
+               for shape, res in k5_train.items()]}
+              if name != "flash_forward" else {}),
            "check": {call: {key: c["max_abs_err"] / c["ref_max_abs"]
                             for key, c in res["vs_plain"].items()}
                      for call, res in k5.items()}}

@@ -1,5 +1,5 @@
-// Tiles and tensor-core fragments shared by K5's three kernels
-// (flash_forward.cu, flash_backward_dkv.cu, flash_backward_dq.cu).
+// Tiles and tensor-core fragments of K5's forward (flash_forward.cu);
+// the backward kernels are built from flash_sm90.cuh.
 //
 // Every operand is a (n, 64) bf16 row-major matrix of one (batch, head)
 // pair.  A CTA of 4 warps stages 64-row tiles in shared memory, padded

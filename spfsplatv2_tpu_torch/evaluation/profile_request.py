@@ -7,7 +7,7 @@ does), runs the path once to warm up, then once under `torch.profiler`,
 and prints one JSON line: the wall time, the device's busy time and share
 (the sum of kernel times over the wall time; one stream, so kernels do
 not overlap), the number of kernel launches, and the kernels that took
-the most device time.  The paths:
+the most device time, and K5's flash-attention kernels apart.  The paths:
   * serving: one request (2 context views + 1 target at 256^2);
   * align: one request with test-time pose alignment, 10 steps;
   * train: one `make_train_step` step at the flagship batch (b = 16,
@@ -113,6 +113,8 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
         by_name.setdefault(e.name[:100], []).append(e.device_time_total / 1e3)
     top = sorted(((sum(v), len(v), k) for k, v in by_name.items()),
                  reverse=True)[:15]
+    # K5's kernels by name, whether or not they make the top 15.
+    flash = {k: [sum(v), len(v)] for k, v in by_name.items() if "flash_" in k}
     result = {
         "path": path,
         "image_size": hw,
@@ -122,6 +124,7 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
         "device_busy_share": busy_ms / wall_ms,
         "kernel_launches": len(kernels),
         "top_kernels_ms_count_name": top,
+        "flash_kernels_ms_count": flash,
     }
     print(json.dumps(result), flush=True)
     return result

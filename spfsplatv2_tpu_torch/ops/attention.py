@@ -53,6 +53,8 @@ def _require_f32(t: torch.Tensor, name: str, shape: tuple, device) -> None:
     cuda_lib.require(t, name, torch.float32, len(shape), device)
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
 
 
 def flash_forward_plain(q, k, v, scale):

@@ -56,6 +56,11 @@ SIGNATURES = {
     "flash_backward_dq": {
         "spf_flash_backward_dq": [_P] * 7 + [_I, _I, _I, _F, _P],
     },
+    # Not a path kernel: each kind of wgmma product of K5's backward
+    # alone, for the tests (no launch count).
+    "wgmma_check": {
+        "spf_wgmma_check": [_P, _P, _P, _I, _I, _I, _P],
+    },
 }
 
 launch_counts: dict[str, int] = {

@@ -24,6 +24,7 @@ from spfsplatv2_tpu_torch.ops.attention import (
     flash_forward_plain,
     _dense,
 )
+from spfsplatv2_tpu_torch.ops import cuda_lib
 from spfsplatv2_tpu_torch.ops.covariance import build_covariance
 from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
 from spfsplatv2_tpu_torch.ops import raster_cuda
@@ -198,18 +199,8 @@ def _within(actual, desired, frac):
         desired.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_q,n_k",
-                         [(4098, 4098), (300, 389), (100, 7), (64, 1)])
-def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
-    """K5's three kernels against their plain versions at ragged lengths
-    (fewer keys than one tile included): O within 1e-2 of max |O| (bf16
-    output, P rounded to bf16 in both) and lse within 1e-4; dQ, dK, dV
-    within 1e-2 of their max.  With one key, P = 1 and dS = P (dP - di)
-    is zero up to the rounding of two float32 sums in different orders,
-    so dQ and dK are zero up to rounding: a bar relative to their max
-    means nothing there, and they are held within 1e-3 absolute."""
-    q, k, v, do = _flash_inputs(cuda_device, 1, 3, n_q, n_k)
+def _check_flash_kernels(device, b, h, n_q, n_k):
+    q, k, v, do = _flash_inputs(device, b, h, n_q, n_k)
     scale = 0.125
     o, lse = flash_forward_cuda(q, k, v, scale)
     torch.cuda.synchronize()
@@ -233,12 +224,82 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n_k",
+                         [(4098, 4098), (300, 389), (100, 7), (64, 1),
+                          (192, 320), (130, 4098), (4098, 63)])
+def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
+    """K5's three kernels against their plain versions at ragged lengths
+    (fewer keys than one tile included): O within 1e-2 of max |O| (bf16
+    output, P rounded to bf16 in both) and lse within 1e-4; dQ, dK, dV
+    within 1e-2 of their max.  The backward kernels take 128-row key
+    (dK/dV) and query (dQ) tiles and stream 64-row tiles of the other
+    axis: (192, 320), (130, 4098) and (4098, 63) end both on part of a
+    tile.  With one key, P = 1 and dS = P (dP - di) is zero up to the
+    rounding of two float32 sums in different orders, so dQ and dK are
+    zero up to rounding: a bar relative to their max means nothing
+    there, and they are held within 1e-3 absolute."""
+    _check_flash_kernels(cuda_device, 1, 3, n_q, n_k)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_match_plain_across_heads(cuda_device):
+    """b x h = 6 heads of 4098 rows: every tail tile reaches past its
+    head's last row, where a 2-D tensor map over (64, b*h*n) would read
+    the next head's rows; the 3-D maps read zeros there."""
+    _check_flash_kernels(cuda_device, 2, 3, 4098, 4098)
+
+
+@pytest.mark.cuda
+def test_flash_backward_is_deterministic(cuda_device):
+    """Each gradient tile is written once, with no atomics: two runs of
+    each backward kernel give the same bits."""
+    q, k, v, do = _flash_inputs(cuda_device, 2, 3, 4098, 4098, seed=2)
+    o, lse = flash_forward_cuda(q, k, v, 0.125)
+    di = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, di, 0.125)
+    runs = [(*flash_backward_dkv_cuda(*args), flash_backward_dq_cuda(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(("dk", "dv", "dq"), *runs):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "a_regs,b_mn_major,n",
+    [(0, 0, 64), (0, 1, 64), (1, 0, 64), (1, 1, 64), (0, 0, 128)],
+    ids=["a_shared-b_k_major", "a_shared-b_mn_major", "a_registers-b_k_major",
+         "a_registers-b_mn_major", "a_shared-b_k_major-n128"])
+def test_wgmma_product_matches_matmul(cuda_device, a_regs, b_mn_major, n):
+    """Each kind of wgmma product of K5's backward kernels alone
+    (csrc/wgmma_check.cu: TMA over 3-D maps with the 128-byte swizzle,
+    two warpgroups of 64 rows, four k16 steps; n = 128 is the dQ kernel's
+    m64n128 S and dP) against torch.matmul in float32: the bf16 products
+    are exact in float32, so only the order of the 64-term sums differs
+    (within 1e-4 of max).  A wrong descriptor stride, k16 step or
+    transpose bit gives errors of the order of max."""
+    rng = np.random.default_rng(10 + 2 * a_regs + b_mn_major + n)
+    make = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+    a, b = make(128, 64), make(64, n)
+    stored = b if b_mn_major else b.T.contiguous()
+    c = torch.empty(128, n, device=cuda_device)
+    err = cuda_lib.library("wgmma_check").spf_wgmma_check(
+        a.data_ptr(), stored.data_ptr(), c.data_ptr(), n, a_regs, b_mn_major,
+        cuda_lib.stream_handle(cuda_device))
+    cuda_lib.check(err, "wgmma_check")
+    torch.cuda.synchronize()
+    ref = a.float() @ b.float()
+    worst = float((c - ref).abs().max())
+    assert worst <= 1e-4 * float(ref.abs().max()), worst
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_matches_dense(cuda_device):
     """The autograd function (K5 forward, dK/dV and dQ kernels) against
     autograd through the dense form in float32 on the same bf16 inputs,
     within 2e-2 of each max (the kernels round P and dS to bf16)."""
-    from spfsplatv2_tpu_torch.ops import cuda_lib
-
     q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     cuda_lib.reset_launch_counts()
