@@ -11,8 +11,10 @@ Phases, each printing JSON lines:
   2. build: every kernel (K1-K5), compiled from `csrc/` with one `nvcc`
      per source, all started together;
   3. K3 (`cumsum_1d`, csrc/prefix_scan.cu) against its plain version
-     (int32 exact) at the main path's n and a ragged n, timed beside
-     `torch.cumsum`;
+     (int32 exact) at the main path's n, a ragged n and the 1024^2
+     path's n, timed beside `torch.cumsum`: back-to-back calls (CUDA
+     events) and the device time alone (torch.profiler's kernel records,
+     which also count the kernels a call launches);
   4. K1 (`composite_forward`, csrc/composite_forward.cu) against its plain
      version on a pixel-aligned 131072-Gaussian scene at 256^2, binned by
      the port, and against the dense oracle on a 64^2 scene;
@@ -110,6 +112,13 @@ K5_TOL = 1e-2        # kernel vs plain: max |err| <= 1e-2 * max |plain|
 K5_TOL_DENSE = 2e-2
 K5_FLOPS = {"flash_forward": 4, "flash_backward_dkv": 8,
             "flash_backward_dq": 6}  # x b*h*n_q*n_k*64 on the tensor cores
+# The forward's other bound: one ex2 per logit on the special-function
+# units, 16 a clock on each of the 132 SMs at 1.83 GHz (the FlashAttention-3
+# paper's 3.9 T/s for the H100 SXM).
+H100_EX2_PER_S = 3.9e12
+# K3's calls for its profiler window (device time per call and kernels
+# per call).
+K3_PROFILE_CALLS = 50
 # Self-attention launches per 1024^2 encoder pass: 24 encoder blocks and
 # 12 + 12 decoder blocks; the 12th call (encoder block 12) is held
 # against the plain version on its real q, k, v.
@@ -145,6 +154,30 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profile_calls(torch, fn, calls: int) -> tuple:
+    """Device time per call of `fn` from torch.profiler's records of the
+    device's kernels and memsets over `calls` calls, and those records per
+    call by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        fail("torch.profiler recorded no device time")
+    names: dict[str, int] = {}
+    for e in ops:
+        names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    return (sum(e.device_time_total for e in ops) / 1e3 / calls,
+            {name: count / calls for name, count in names.items()})
 
 
 def pixel_aligned_scene(torch, views: int, hw: int, gen, dev, d_sh=25,
@@ -314,6 +347,8 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
         t["bound_ms"] = flops / H100_BF16_PER_S * 1e3
         t["bound_by"] = "operations"
         t["tflops"] = flops / t["ms"] / 1e9
+    times["flash_forward"]["ex2_bound_ms"] = (b * h * n_q * n_k
+                                              / H100_EX2_PER_S * 1e3)
     times["flash_forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
     times["flash_backward_dkv"]["max_abs_err"] = max(
         checks["dk"]["max_abs_err"], checks["dv"]["max_abs_err"])
@@ -434,8 +469,9 @@ def main() -> int:
     logs = cuda_lib.build_all()
     for name in cuda_lib.SIGNATURES:
         cuda_lib.library(name)
+    # Registers, spills and the wgmma serialisation warnings (C75xx).
     ptxas = [line.strip() for log in logs.values() for line in log.splitlines()
-             if "registers" in line or "spill" in line]
+             if "registers" in line or "spill" in line or "(C75" in line]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs), "ptxas": ptxas})
 
@@ -444,7 +480,7 @@ def main() -> int:
     # ---- 3. K3: cumsum_1d ---------------------------------------------
     checks = []
     # The 256^2 path's n, a ragged n, and the 1024^2 path's n = 2 x 1024^2
-    # (block totals past one block: the multi-pass carry).
+    # (256 tiles: look-backs past one window of 32 words).
     for n in (131072, 100003, 1 << 21):
         xi = torch.randint(-3, 9, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -463,11 +499,19 @@ def main() -> int:
                        "f32_max_abs_err": float(errf.max())})
     n = 131072
     x = torch.randint(0, 2, (n,), generator=gen, device=dev, dtype=torch.int32)
+    library = lambda: torch.cumsum(x, 0, dtype=torch.int32)  # noqa: E731
+    device_ms, per_call = profile_calls(torch, lambda: cumsum_1d_cuda(x),
+                                        K3_PROFILE_CALLS)
+    if sum(per_call.values()) != 1.0:
+        fail(f"K3 ran {per_call} device operations a call, not one kernel")
+    library_device_ms, library_per_call = profile_calls(torch, library,
+                                                        K3_PROFILE_CALLS)
     k3 = {
         "ms": time_ms(torch, lambda: cumsum_1d_cuda(x), 200),
+        "device_ms": device_ms,
         "plain_ms": time_ms(torch, lambda: cumsum_1d_plain(x), 200),
-        "library_ms": time_ms(
-            torch, lambda: torch.cumsum(x, 0, dtype=torch.int32), 200),
+        "library_ms": time_ms(torch, library, 200),
+        "library_device_ms": library_device_ms,
         "max_abs_err": float((cumsum_1d_cuda(x) - cumsum_1d_plain(x))
                              .abs().max()),
         "bound_ms": max(2 * n * 4 / H100_BYTES_PER_S,
@@ -475,6 +519,8 @@ def main() -> int:
         "bound_by": "bytes",
     }
     emit({"phase": "K3", "checks": checks, "n": n, "dtype": "int32", **k3,
+          "device_ops_per_call": per_call,
+          "library_device_ops_per_call": library_per_call,
           "note": "int32 0/1 flags as in the binning's pool rank"})
 
     # ---- 4. K1: composite_forward -------------------------------------

@@ -1,8 +1,9 @@
-// Hopper building blocks shared by K5's two backward kernels
-// (flash_backward_dkv.cu, flash_backward_dq.cu) and the check of their
+// Hopper building blocks shared by K5's three kernels (flash_forward.cu,
+// flash_backward_dkv.cu, flash_backward_dq.cu) and the check of their
 // products (wgmma_check.cu): TMA tile loads into 128-byte-swizzled shared
-// memory through tensor maps, mbarriers, and wgmma m64n64k16 (bf16 in,
-// f32 accumulate) with B, and optionally A, read from shared memory.
+// memory through tensor maps, mbarriers, named barriers, and wgmma
+// m64n64k16 / m64n128k16 (bf16 in, f32 accumulate) with B, and optionally
+// A, read from shared memory.
 //
 // Tiles.  Every operand is a (n, 64) bf16 row-major matrix of one
 // (batch, head) pair, and a 64-wide bf16 row is 128 B.  TMA copies a box
@@ -61,6 +62,7 @@ constexpr int kD = 64;                 // head dimension (the only one taken)
 constexpr uint32_t kRowBytes = kD * 2;  // one bf16 row, one swizzle span
 constexpr uint32_t kSwizzleBytes = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // Returned by the C entry points when a tensor map cannot be encoded.
 constexpr int kErrTensorMap = 10000;
 
@@ -229,6 +231,17 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Named barriers (ids 1-15; 0 is __syncthreads) over `count` threads:
+// `sync` waits until `count` threads have arrived, `arrive` counts this
+// warp in without waiting.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---- device: wgmma ---------------------------------------------------
 
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
@@ -372,10 +385,12 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[K][4],
   }
 }
 
-// This thread's rows (row, row + 8) of a 64 x 64 accumulator, times
-// `scale`, into a (n, 64) bf16 matrix; rows at or past n are not written.
+// This thread's rows (row, row + 8) of a 64 x 64 accumulator, row h
+// times scale[h], into a (n, 64) bf16 matrix; rows at or past n are not
+// written.
 __device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
-                                           int row, int n, float scale) {
+                                           int row, int n,
+                                           const float (&scale)[2]) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -384,8 +399,16 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<uint32_t*>(out + (size_t)r * kD + 8 * j + 2 * t) =
-          pack_bf16(d[4 * j + 2 * h] * scale, d[4 * j + 2 * h + 1] * scale);
+          pack_bf16(d[4 * j + 2 * h] * scale[h],
+                    d[4 * j + 2 * h + 1] * scale[h]);
   }
+}
+
+// The same with one scale for both rows.
+__device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
+                                           int row, int n, float scale) {
+  const float both[2] = {scale, scale};
+  store_rows(out, d, row, n, both);
 }
 
 }  // namespace sm90

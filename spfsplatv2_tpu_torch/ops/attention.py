@@ -77,11 +77,18 @@ def flash_forward_cuda(q, k, v, scale):
     returns O (b, h, n_q, 64) bf16 and lse (b, h, n_q) float32."""
     n_q, n_k = q.shape[2], k.shape[2]
     bh = _check_flash_inputs({"q": q, "k": k, "v": v}, n_q, n_k)
+    scale = float(scale)
+    # The kernel takes a positive scale (its row max is over the raw
+    # logits); any other is folded into q, exactly in bf16.
+    if scale < 0:
+        q, scale = -q, -scale
+    elif scale == 0:
+        q, scale = torch.zeros_like(q), 1.0
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     err = cuda_lib.library("flash_forward").spf_flash_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, n_q, n_k, float(scale), cuda_lib.stream_handle(q.device))
+        bh, n_q, n_k, scale, cuda_lib.stream_handle(q.device))
     cuda_lib.launch_counts["flash_forward"] += 1
     cuda_lib.check(err, "flash_forward")
     return o, lse

@@ -35,8 +35,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 SIGNATURES = {
     "prefix_scan": {
-        "spf_cumsum_i32": [_P, _P, _P, _L, _P],
-        "spf_cumsum_f32": [_P, _P, _P, _L, _P],
+        "spf_cumsum_i32": [_P, _P, _P, _L, _I, _P],
+        "spf_cumsum_f32": [_P, _P, _P, _L, _I, _P],
     },
     "composite_forward": {
         "spf_composite_forward": [_P, _P, _P, _P, _I, _I, _P, _P],
@@ -137,7 +137,13 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on `device`.  The raw query skips the
+    `torch.cuda.Stream` object that `current_stream` builds, which costs
+    several microseconds a call (K3's whole kernel takes about four)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

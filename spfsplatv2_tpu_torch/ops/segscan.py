@@ -15,8 +15,16 @@ import torch
 
 from spfsplatv2_tpu_torch.ops import cuda_lib
 
-BLOCK = 1024  # elements per CTA in csrc/prefix_scan.cu and csrc/segmented_scan.cu
+BLOCK = 1024  # elements per CTA in csrc/segmented_scan.cu
+SCAN_TILE = 8192  # elements per CTA in csrc/prefix_scan.cu
 _FUNCTIONS = {torch.int32: "spf_cumsum_i32", torch.float32: "spf_cumsum_f32"}
+# K3's look-back status words, one buffer per (device, stream), and the
+# epoch of the last call that used it: a word written by an earlier call
+# carries an older epoch and reads as unwritten.  Epochs run from 2 to
+# 2^30 - 1 (the buffer is cleared when they wrap).  A CUDA graph's replays
+# would repeat one epoch, so K3 is not captured.
+_EPOCH_LIMIT = 1 << 30
+_scan_state: dict[tuple[int, int], list] = {}
 
 
 def cumsum_1d_plain(vals: torch.Tensor) -> torch.Tensor:
@@ -24,18 +32,38 @@ def cumsum_1d_plain(vals: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(vals, dim=0).to(vals.dtype)
 
 
+def scan_state(device: torch.device, stream: int, n: int) -> tuple:
+    """K3's status words for `n` elements on this device and stream, and
+    the call's epoch."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("cumsum_1d cannot be captured in a CUDA graph: "
+                           "every replay would repeat its epoch")
+    tiles = -(-n // SCAN_TILE)
+    entry = _scan_state.get((device.index, stream))
+    if entry is None or entry[0].numel() < tiles:
+        entry = [torch.zeros(max(tiles, 256), dtype=torch.int64,
+                             device=device), 1]
+        _scan_state[device.index, stream] = entry
+    entry[1] += 1
+    if entry[1] == _EPOCH_LIMIT:
+        entry[0].zero_()
+        entry[1] = 2
+    return entry[0], entry[1]
+
+
 def cumsum_1d_cuda(vals: torch.Tensor) -> torch.Tensor:
     """Launch K3 on a contiguous 1-D int32/float32 CUDA tensor."""
     if vals.dtype not in _FUNCTIONS:
         raise ValueError(f"cumsum_1d: unsupported dtype {vals.dtype}")
-    cuda_lib.require(vals, "vals", vals.dtype, 1, vals.device)
+    device = vals.device
+    cuda_lib.require(vals, "vals", vals.dtype, 1, device)
     (n,) = vals.shape
     out = torch.empty_like(vals)
-    totals = torch.empty((max(-(-n // BLOCK), 1),), dtype=vals.dtype,
-                         device=vals.device)
+    stream = cuda_lib.stream_handle(device)
+    state, epoch = scan_state(device, stream, n)
     fn = getattr(cuda_lib.library("prefix_scan"), _FUNCTIONS[vals.dtype])
-    err = fn(vals.data_ptr(), out.data_ptr(), totals.data_ptr(), n,
-             cuda_lib.stream_handle(vals.device))
+    err = fn(vals.data_ptr(), out.data_ptr(), state.data_ptr(), n, epoch,
+             stream)
     cuda_lib.launch_counts["cumsum_1d"] += 1
     cuda_lib.check(err, "cumsum_1d")
     return out

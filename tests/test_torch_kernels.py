@@ -37,8 +37,11 @@ from spfsplatv2_tpu_torch.ops.raster_cuda import (
     composite_forward_plain,
 )
 from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
+from spfsplatv2_tpu_torch.ops import segscan
 from spfsplatv2_tpu_torch.ops.segscan import (
+    SCAN_TILE,
     cumsum_1d_cuda,
+    scan_state,
     segmented_scan_lanes_cuda,
     segmented_scan_lanes_plain,
 )
@@ -83,17 +86,100 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_backward_dq_cuda(*qkv, *stats, 0.125)
 
 
+def _check_cumsum(x: torch.Tensor) -> None:
+    """K3 on x against torch.cumsum: int32 exact; float32 sums in two
+    orders, within 1e-5 of the running sum of |x|."""
+    got = cumsum_1d_cuda(x)
+    want = torch.cumsum(x, 0).to(x.dtype)
+    if x.dtype == torch.int32:
+        assert torch.equal(got, want), x.shape
+    else:
+        err = (got - want).abs()
+        assert bool((err <= 1e-5 * torch.cumsum(x.abs(), 0) + 1e-6).all())
+
+
+def _scan_input(rng, n: int, dtype, device) -> torch.Tensor:
+    x = (rng.integers(-3, 9, n).astype(np.int32) if dtype == torch.int32
+         else rng.uniform(-1, 1, n).astype(np.float32))
+    return torch.from_numpy(x).to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 1024, 4099, 131072, 1 << 21])
+@pytest.mark.parametrize(
+    "n", [1, 1024, 4099, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 131072,
+          1 << 21, (1 << 21) + 1])
 def test_cumsum_kernel_matches_plain(cuda_device, n):
+    """K3 at both sides of its 8192-element tile, at the 256^2 path's n,
+    and at 2^21 (+ 1): 256 tiles, so look-backs span more than one window
+    of 32 status words."""
     rng = np.random.default_rng(n)
-    xi = torch.from_numpy(rng.integers(-3, 9, n).astype(np.int32)).to(cuda_device)
-    assert torch.equal(cumsum_1d_cuda(xi), torch.cumsum(xi, 0).to(torch.int32))
-    xf = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda_device)
-    # Float32 sums in two orders: within 1e-5 of the running sum of |x|.
-    scale = torch.cumsum(xf.abs(), 0)
-    err = (cumsum_1d_cuda(xf) - torch.cumsum(xf, 0)).abs()
-    assert bool((err <= 1e-5 * scale + 1e-6).all())
+    for dtype in (torch.int32, torch.float32):
+        _check_cumsum(_scan_input(rng, n, dtype, cuda_device))
+
+
+@pytest.mark.cuda
+def test_cumsum_back_to_back_calls(cuda_device):
+    """50 calls of mixed type and length on one stream, with no
+    synchronisation between them: each call's status words carry its own
+    epoch, so no word of an earlier call is taken for one of this call."""
+    rng = np.random.default_rng(7)
+    xs = [_scan_input(rng, int(n), dtype, cuda_device) for n, dtype in zip(
+        rng.integers(1, 300_000, 50),
+        [torch.int32, torch.float32] * 25)]
+    outs = [cumsum_1d_cuda(x) for x in xs]
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        want = torch.cumsum(x, 0).to(x.dtype)
+        if x.dtype == torch.int32:
+            assert torch.equal(got, want)
+        else:
+            err = (got - want).abs()
+            assert bool((err <= 1e-5 * torch.cumsum(x.abs(), 0) + 1e-6).all())
+
+
+@pytest.mark.cuda
+def test_cumsum_on_two_streams(cuda_device):
+    """Calls on two streams at once each take their stream's status
+    words."""
+    rng = np.random.default_rng(8)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    xs = [_scan_input(rng, 1 << 20, torch.int32, cuda_device)
+          for _ in range(8)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(cumsum_1d_cuda(x))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        assert torch.equal(got, torch.cumsum(x, 0).to(torch.int32))
+
+
+def test_scan_state_epochs(monkeypatch):
+    """K3's status-word bookkeeping: each call on a device and stream
+    gets a new epoch from 2 up, a longer input a larger (zeroed) buffer,
+    the wrap of the epochs a zeroed buffer; under graph capture, whose
+    replays would repeat an epoch, it raises and keeps no state."""
+    monkeypatch.setattr(segscan, "_scan_state", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    dev = torch.device("cpu")
+    words, epoch = scan_state(dev, 1, 1000)
+    assert epoch == 2 and words.numel() >= 1
+    assert scan_state(dev, 1, 1000)[1] == 3
+    assert scan_state(dev, 2, 1000)[1] == 2  # another stream
+    words[:] = 5
+    big, epoch = scan_state(dev, 1, 300 * SCAN_TILE)
+    assert big.numel() >= 300 and int(big.abs().sum()) == 0 and epoch == 2
+    segscan._scan_state[None, 1][1] = segscan._EPOCH_LIMIT - 1
+    big[:] = 5
+    same, epoch = scan_state(dev, 1, 10)
+    assert same is big and epoch == 2 and int(big.abs().sum()) == 0
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="captured"):
+        scan_state(dev, 3, 10)
+    assert (None, 3) not in segscan._scan_state
 
 
 @pytest.mark.cuda
@@ -226,7 +312,10 @@ def _check_flash_kernels(device, b, h, n_q, n_k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_q,n_k",
                          [(4098, 4098), (300, 389), (100, 7), (64, 1),
-                          (192, 320), (130, 4098), (4098, 63)])
+                          (192, 320), (130, 4098), (4098, 63),
+                          (127, 4098), (129, 4098), (191, 4098), (193, 4098),
+                          (383, 4098), (385, 4098), (4098, 127), (4098, 129),
+                          (4098, 255), (4098, 257)])
 def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
     """K5's three kernels against their plain versions at ragged lengths
     (fewer keys than one tile included): O within 1e-2 of max |O| (bf16
@@ -234,7 +323,11 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
     within 1e-2 of their max.  The backward kernels take 128-row key
     (dK/dV) and query (dQ) tiles and stream 64-row tiles of the other
     axis: (192, 320), (130, 4098) and (4098, 63) end both on part of a
-    tile.  With one key, P = 1 and dS = P (dP - di) is zero up to the
+    tile.  The forward takes 192 query rows a CTA (64 a warpgroup) and
+    128-key tiles: (127-385, 4098) sit at both sides of two warpgroups,
+    one and two CTAs, (4098, 127-257) at both sides of one and two key
+    tiles.
+    With one key, P = 1 and dS = P (dP - di) is zero up to the
     rounding of two float32 sums in different orders, so dQ and dK are
     zero up to rounding: a bar relative to their max means nothing
     there, and they are held within 1e-3 absolute."""
@@ -251,17 +344,53 @@ def test_flash_kernels_match_plain_across_heads(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_backward_is_deterministic(cuda_device):
-    """Each gradient tile is written once, with no atomics: two runs of
-    each backward kernel give the same bits."""
+    """Each output tile is written once, with no atomics: two runs of
+    the forward and of each backward kernel give the same bits."""
     q, k, v, do = _flash_inputs(cuda_device, 2, 3, 4098, 4098, seed=2)
-    o, lse = flash_forward_cuda(q, k, v, 0.125)
+    forward = [flash_forward_cuda(q, k, v, 0.125) for _ in range(2)]
+    o, lse = forward[0]
     di = (do.float() * o.float()).sum(-1)
     args = (q, k, v, do, lse, di, 0.125)
-    runs = [(*flash_backward_dkv_cuda(*args), flash_backward_dq_cuda(*args))
-            for _ in range(2)]
+    runs = [(*fwd, *flash_backward_dkv_cuda(*args),
+             flash_backward_dq_cuda(*args)) for fwd in forward]
     torch.cuda.synchronize()
-    for name, first, second in zip(("dk", "dv", "dq"), *runs):
+    for name, first, second in zip(("o", "lse", "dk", "dv", "dq"), *runs):
         assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+def test_flash_forward_peaked_logits(cuda_device):
+    """Logits whose row max rises from one key tile to the next (q
+    scaled by 4, the keys of tile j by 1 + j / 4, ~4 log2 units a tile):
+    O and l are rescaled whenever a row's max has risen past the kernel's
+    threshold of 2^8 and carried on the old max between.  O within 1e-2
+    of max |O|, lse within 1e-4 of max |lse|, against the plain
+    version."""
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 3, 1000, 1030, seed=3)
+    q = (q.float() * 4).to(torch.bfloat16)
+    tile = torch.arange(1030, device=cuda_device).div(128,
+                                                      rounding_mode="floor")
+    k = (k.float() * (1 + tile[:, None] / 4)).to(torch.bfloat16)
+    o, lse = flash_forward_cuda(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_forward_plain(q, k, v, 0.125)
+    assert _within(o, o_p, 1e-2)
+    assert float((lse - lse_p).abs().max()) <= 1e-4 * float(lse_p.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_flash_forward_takes_any_scale(cuda_device, scale):
+    """The kernel takes the row max over the raw logits, so it takes a
+    positive scale only; flash_forward_cuda folds a negative or zero one
+    into q.  O within 1e-2 of max |O|, lse within 1e-4 of max |lse|
+    against the plain version."""
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 3, 300, 389, seed=4)
+    o, lse = flash_forward_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_forward_plain(q, k, v, scale)
+    assert _within(o, o_p, 1e-2)
+    assert float((lse - lse_p).abs().max()) <= 1e-4 * float(lse_p.abs().max())
 
 
 @pytest.mark.cuda
