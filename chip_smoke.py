@@ -53,7 +53,8 @@ Phases, each printing JSON lines:
      the first request's 2 x 1024^2 Gaussians and pose, the render
      through K1 and K3 against the same render through their plain
      versions on the card, K3 on each of the binning's real inputs, and
-     K2 on that camera's bins against its plain version;
+     K2 on that camera's bins against its plain version; K1 and K2 timed
+     on those bins beside their bounds;
  12. the training path: 3 steps of `make_train_step` on the full-width
      encoder (remat on, seeded LPIPS, the re10k optimizer recipe) at the
      flagship batch, b = 16 of 2 context + 1 target at 256^2, with the
@@ -86,15 +87,20 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same source
 H100_BF16_PER_S = 989e12     # bf16 tensor cores, dense, same source
-# FP32 operations per (pixel, entry) pair in K1: every walked pair pays
+# FP32 operations per (pixel, entry) pair in K1: an evaluated pair pays
 # dx, dy and the power (11), exp, scale and clamp (3); a blended pair adds
 # the transmittance test (2), its weight (1) and 4 accumulations (8).
 K1_OPS_WALKED, K1_OPS_BLENDED = 14, 11
-# K2: a walked pair pays what it pays in K1 (14); a blended pair adds the
-# transmittance test (2), its weight (1), u (7), the suffix update (2),
+# K2: an evaluated pair pays what it pays in K1 (14); a blended pair adds
+# the transmittance test (2), its weight (1), u (7), the suffix update (2),
 # dL/dalpha (5), dpow (1), the ten fields (23) and their ten sums over
 # the tile's pixels (10).
 K2_OPS_WALKED, K2_OPS_BLENDED = 14, 51
+# The operation bound counts only the blended pairs, each at both rates
+# added: a pair that is not blended contributes nothing, and a kernel
+# that culls need not evaluate it.  The walked pairs' count (every entry
+# of a pixel up to the one that stops it) stays in the phase lines as
+# "ops_walked", the bound of the kernels that walked every pair.
 # Full batch of the flagship recipe fits on the 80 GB card in one pass
 # (peak memory in PERF.md), so the step takes no gradient accumulation.
 TRAIN_BATCH, TRAIN_MICROBATCH = 16, 16
@@ -251,6 +257,57 @@ def check_k2_rows(accumulate_rows, rows_k, rows_p, bins, g: int,
     return {"n_live": n_live, "rows_over_1e-4_of_max": bad_rows,
             "rows_max_abs_err": float(diff.max()),
             "per_gaussian_max_abs_err": float(per_g_err.max())}
+
+
+def composite_bound(bins, walked: int, blended: int, out_numel: int,
+                    backward: bool) -> dict:
+    """K1's (or K2's) least time on these bins: the bytes it must move
+    (each live entry's index, each live Gaussian's 40-byte row, the
+    tiles' counts and starts, the output; K2 also reads the cotangent and
+    writes a 40-byte row a slot) against the operations of the blended
+    pairs."""
+    n_live = int(bins.n_live)
+    n_tiles = bins.counts.shape[0]
+    live_rows = int((bins.live_counts > 0).sum())
+    n_bytes = n_live * 4 + live_rows * 40 + 2 * n_tiles * 4 + out_numel * 4
+    walked_rate, blended_rate = ((K2_OPS_WALKED, K2_OPS_BLENDED) if backward
+                                 else (K1_OPS_WALKED, K1_OPS_BLENDED))
+    if backward:
+        n_bytes += out_numel * 4 + bins.e_pad * 40
+    ops = blended * (walked_rate + blended_rate)
+    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_PER_S * 1e3
+    return {"bound_bytes": n_bytes, "bound_ops": ops,
+            "ops_walked": walked * walked_rate + blended * blended_rate,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def evaluated_pairs(torch, cull_box_plain, packed, bins) -> int:
+    """The (pixel, entry) pairs that K1 and K2 evaluate on these bins: each
+    8 x 4 pixel rectangle of a tile (a warp) walks the entries whose cull
+    box meets it, by the kernels' predicate in PyTorch (`cull_box_plain`,
+    which may differ from the card's by a pixel where float32 rounding
+    puts a box edge on an integer)."""
+    counts = bins.counts.long()
+    dev = counts.device
+    tile = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
+                                   counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = bins.starts.long()[tile] + torch.arange(tile.shape[0],
+                                                   device=dev) - first[tile]
+    rows = packed[bins.src.long()[slot]]
+    tiles_x = bins.num_tiles_xy[1]
+    x_lo, x_hi, y_lo, y_hi = cull_box_plain(
+        rows[:, 0] - ((tile % tiles_x) * 16).float(),
+        rows[:, 1] - ((tile // tiles_x) * 16).float(),
+        rows[:, 2], rows[:, 3], rows[:, 4], rows[:, 8])
+    hits = 0
+    for x0 in (0, 8):
+        for y0 in (0, 4, 8, 12):
+            hits += int(((x_lo <= x0 + 7) & (x_hi >= x0) & (y_lo <= y0 + 3)
+                         & (y_hi >= y0)).sum())
+    return 32 * hits
 
 
 def k5_inputs(torch, attention, shape: tuple, gen, dev) -> tuple:
@@ -433,6 +490,7 @@ def main() -> int:
         composite_forward_cuda,
         composite_forward_plain_work,
         composite_prefix,
+        cull_box_plain,
         packed_rows,
     )
     from spfsplatv2_tpu_torch.ops.raster_ref import composite_reference
@@ -557,20 +615,15 @@ def main() -> int:
             fail(f"K1 {name} vs plain: max {float(diff.max())}, "
                  f"{outliers} pixels over {atol}")
     n_live = int(bins.n_live)
-    live_rows = int((bins.live_counts > 0).sum())
-    n_tiles = bins.counts.shape[0]
-    k1_bytes = n_live * 4 + live_rows * 40 + 2 * n_tiles * 4 + out_k.numel() * 4
-    k1_ops = walked * K1_OPS_WALKED + blended * K1_OPS_BLENDED
+    evaluated = evaluated_pairs(torch, cull_box_plain, packed, bins)
+    k1_bound = composite_bound(bins, walked, blended, out_k.numel(), False)
     k1 = {
         "ms": time_ms(torch, lambda: composite_forward_cuda(*args), 50),
         "plain_ms": time_ms(torch, lambda: composite_forward_plain_work(*args),
                             3, warmup=1),
         "library_ms": None,
         "max_abs_err": max(v["max_abs_err"] for v in k1_check.values()),
-        "bound_ms": max(k1_bytes / H100_BYTES_PER_S,
-                        k1_ops / H100_FP32_PER_S) * 1e3,
-        "bound_by": ("bytes" if k1_bytes / H100_BYTES_PER_S
-                     >= k1_ops / H100_FP32_PER_S else "operations"),
+        "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
     }
     # The dense oracle on a small scene (the full-size one needs ~34 GB).
     # Opacities stay below 0.35 so that no alpha above 1/255 lies outside
@@ -595,8 +648,9 @@ def main() -> int:
     emit({"phase": "K1", "g": g, "hw": hw, "n_live": n_live,
           "dropped_entries": int(bins.n_overflow), "e_pad": bins.e_pad,
           "pairs_walked": walked, "pairs_blended": blended,
+          "pairs_evaluated": evaluated,
           "vs_plain": k1_check, "vs_oracle_64px_max_abs_err": oracle,
-          "bound_bytes": k1_bytes, "bound_ops": k1_ops, **k1})
+          **k1_bound, **k1})
 
     # ---- 5. main path: evaluate_example at full width -----------------
     t0 = time.perf_counter()
@@ -754,23 +808,17 @@ def main() -> int:
                 b.abs().max()):
             fail(f"K2 d{name} vs the dense oracle: max {err}, "
                  f"scale {float(b.abs().max())}")
-    k2_bytes = (n_live * 4 + live_rows * 40 + 2 * n_tiles * 4
-                + 2 * out_k.numel() * 4 + rows_k.numel() * 4)
-    k2_ops = walked * K2_OPS_WALKED + blended * K2_OPS_BLENDED
+    k2_bound = composite_bound(bins, walked, blended, out_k.numel(), True)
     k2 = {
         "ms": time_ms(torch, lambda: composite_backward_cuda(*bwd_args), 50),
         "plain_ms": time_ms(torch, lambda: composite_backward_plain(*bwd_args),
                             2, warmup=1),
         "library_ms": None,
         "max_abs_err": k2_check["per_gaussian_max_abs_err"],
-        "bound_ms": max(k2_bytes / H100_BYTES_PER_S,
-                        k2_ops / H100_FP32_PER_S) * 1e3,
-        "bound_by": ("bytes" if k2_bytes / H100_BYTES_PER_S
-                     >= k2_ops / H100_FP32_PER_S else "operations"),
+        "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"],
     }
     emit({"phase": "K2", "g": g, "e_pad": bins.e_pad, **k2_check,
-          "vs_oracle_64px_max_abs_err": k2_oracle,
-          "bound_bytes": k2_bytes, "bound_ops": k2_ops, **k2})
+          "vs_oracle_64px_max_abs_err": k2_oracle, **k2_bound, **k2})
 
     # ---- 8. K4: segmented_scan_lanes ----------------------------------
     # Phase 7's rows in source order, one row per real field (the shape
@@ -974,12 +1022,27 @@ def main() -> int:
     lrows_p = composite_backward_plain(*largs, lfwd, lcot)
     k2_long = check_k2_rows(accumulate_rows, lrows_k, lrows_p, lbins, g_long,
                             "1024^2 camera")
+    del lrows_p
+    # K1 and K2 timed on that camera's bins, beside their bounds.
+    _, lwalked, lblended = composite_forward_plain_work(*largs)
+    levaluated = evaluated_pairs(torch, cull_box_plain, largs[0], lbins)
+    at_1024 = {}
+    for name, fn, fargs, backward in (
+            ("composite_forward", composite_forward_cuda, largs, False),
+            ("composite_backward", composite_backward_cuda,
+             (*largs, lfwd, lcot), True)):
+        at_1024[name] = {
+            "ms": time_ms(torch, lambda fn=fn, fargs=fargs: fn(*fargs), 20),
+            **composite_bound(lbins, lwalked, lblended, lfwd.numel(),
+                              backward)}
     emit({"phase": "check_1024", "g": g_long,
           "n_tiles": lbins.counts.shape[0], "e_pad": lbins.e_pad,
+          "n_live": int(lbins.n_live), "pairs_walked": lwalked,
+          "pairs_blended": lblended, "pairs_evaluated": levaluated,
           "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
-          "k2_vs_plain": k2_long,
+          "k2_vs_plain": k2_long, "kernels": at_1024,
           "seconds_total": time.perf_counter() - t_start})
-    del long_out, g0, lproj, lbins, largs, lfwd, lcot, lrows_k, lrows_p
+    del long_out, g0, lproj, lbins, largs, lfwd, lcot, lrows_k
     torch.cuda.empty_cache()
 
     # ---- 12. the training path ----------------------------------------
@@ -1147,6 +1210,7 @@ def main() -> int:
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:185",
          "launches": train_counts["composite_forward"],
          "launches_by_path": by_path("composite_forward"), **k1,
+         "at_1024_camera": at_1024["composite_forward"],
          "check": {"vs_plain_outlier_pixels": sum(
              v["outliers"] for v in k1_check.values()),
                    "vs_oracle_64px_max_abs_err": max(oracle.values()),
@@ -1158,6 +1222,7 @@ def main() -> int:
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:295",
          "launches": train_counts["composite_backward"],
          "launches_by_path": by_path("composite_backward"), **k2,
+         "at_1024_camera": at_1024["composite_backward"],
          "check": {"vs_plain_rows_over_1e-4_of_max":
                    k2_check["rows_over_1e-4_of_max"],
                    "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),

@@ -54,6 +54,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace sm90 {
 
 using bf16 = __nv_bfloat16;
@@ -125,21 +127,7 @@ inline bool vector_map(CUtensorMap* map, const void* base, long long len,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Dynamic shared memory above 48 KB needs the kernel's limit raised, once
-// on each device: `raised` is the caller's record, one bit a device.
-template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& raised) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
-  if (raised & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) raised |= bit;
-  return err;
-}
+using kernel_launch::allow_smem;
 
 // ---- device: shared memory, mbarriers, TMA ---------------------------
 

@@ -28,7 +28,10 @@ from spfsplatv2_tpu_torch.models.croco.layers import (
     PatchEmbed,
     SelfAttention,
 )
-from spfsplatv2_tpu_torch.ops.attention import sdpa_view_masked
+from spfsplatv2_tpu_torch.ops.attention import (
+    flash_limits_violation,
+    sdpa_view_masked,
+)
 from spfsplatv2_tpu_torch.ops.rope import rope_2d
 
 
@@ -180,6 +183,18 @@ class MaskedCrocoBackbone(nn.Module):
         b, v, h, w, _ = images.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
         p = gh * gw
+        # Each view's self-attention: p keys in the encoder, p plus the
+        # intrinsics and pose tokens in the decoders.
+        dec_keys = p + int(cfg.intrinsics_token) + int(cfg.pose_token)
+        reason = flash_limits_violation(
+            images.device, cfg.dtype,
+            [(p, cfg.enc_embed_dim // cfg.enc_num_heads),
+             (dec_keys, cfg.dec_embed_dim // cfg.dec_num_heads)])
+        if reason is not None:
+            raise ValueError(f"{reason}: set CrocoBackboneConfig."
+                             f"compute_dtype to 'bfloat16' (it is "
+                             f"{cfg.compute_dtype!r}) and keep 64-wide heads, "
+                             f"or use smaller images")
 
         remat = cfg.remat and torch.is_grad_enabled()
 

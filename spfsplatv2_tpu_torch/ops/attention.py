@@ -49,6 +49,26 @@ def _check_flash_inputs(tensors: dict, n_q: int, n_k: int) -> int:
     return b * h
 
 
+def flash_limits_violation(device: torch.device, dtype: torch.dtype,
+                           attentions) -> str | None:
+    """What K5 would refuse among a model's self-attentions, or None.
+
+    `attentions` lists each self-attention's (keys, head dim).  One with
+    `FLASH_MIN_KV` keys or more (read at call time, as `sdpa` does) on a
+    CUDA device takes K5, which takes bf16 with head dim 64 only; on the
+    CPU it is dense and takes anything."""
+    if torch.device(device).type != "cuda":
+        return None
+    for keys, head_dim in attentions:
+        if keys >= FLASH_MIN_KV and (dtype != torch.bfloat16
+                                     or head_dim != HEAD_DIM):
+            return (f"a self-attention over {keys} keys takes the flash "
+                    f"attention kernel K5 (at {FLASH_MIN_KV} keys or more "
+                    f"on CUDA), which takes bfloat16 with head dim "
+                    f"{HEAD_DIM} only; got {dtype} with head dim {head_dim}")
+    return None
+
+
 def _require_f32(t: torch.Tensor, name: str, shape: tuple, device) -> None:
     cuda_lib.require(t, name, torch.float32, len(shape), device)
     if tuple(t.shape) != shape:

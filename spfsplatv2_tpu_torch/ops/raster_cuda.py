@@ -14,6 +14,11 @@ Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (or raises).  Unlike the JAX VJP, which drops
 the cotangent of the output's T channel (`raster_pallas.py:576-579`), the
 backward differentiates the background term T_fin * background too.
+
+Both kernels walk an entry only at the pixels of its cull box
+(`csrc/composite_common.cuh:cull_box`), outside of which the exact test
+skips it; `cull_box_plain` is the same predicate in PyTorch, for the
+tests.  The plain versions do not cull: the cull changes no output.
 """
 
 from __future__ import annotations
@@ -56,6 +61,58 @@ class _Chunk(NamedTuple):
     done: torch.Tensor        # (t, p) stopped before this chunk
     stopped: torch.Tensor     # (t, p) stopped in this chunk
     t_carry: torch.Tensor     # (t, p) T after this chunk
+
+
+# The cull box's constants (csrc/composite_common.cuh, which derives them).
+CULL_OP_MIN = 0.999 * ALPHA_MIN  # skipped at every pixel below this
+CULL_DET_MIN = 1e-4            # cull a conic only if det > this x a c
+CULL_AC_MIN = 1e-30            # ... and a c >= this
+CULL_QUAD_MAX = 1e36           # ... and max(a, c) (max |m| + 16)^2 < this
+CULL_T_REL, CULL_T_ABS = 1.0 + 1.0 / 64, 1.0 / 65536
+CULL_EXT_REL, CULL_EXT_ABS = 1.0 + 1.0 / 128, 1.0 / 1024
+
+
+def cull_box_plain(mx, my, a, b, c, op):
+    """The kernels' cull box of each entry, in the tile's pixel grid.
+
+    Takes float32 (n,) tensors: the tile-local mean (mean minus the tile's
+    origin), the conic and the opacity.  Returns inclusive int64 pixel
+    bounds (x_lo, x_hi, y_lo, y_hi) within [0, 15]: outside them the
+    kernels' `entry_alpha` skips the entry (x_lo > x_hi or y_lo > y_hi: at
+    every pixel of the tile).  A pixel keeps an entry only where q = a dx^2
+    + 2 b dx dy + c dy^2 <= t = 2 ln(255 op), whose box has half-extents
+    sqrt(t c / det) and sqrt(t a / det); t and the extents are inflated
+    for float32 rounding.  Entries whose conic the cull cannot trust (not
+    finite, not positive definite, ill-conditioned, or large enough for
+    the power to overflow) keep the whole tile; one with op < 0.999 / 255
+    none (just under 1/255, expf's rounding may keep it where power ~ 0).
+    The same float32 operations as `cull_box` in the CUDA header.
+    """
+    ac = a * c
+    det = ac - b * b
+    r = torch.maximum(mx.abs(), my.abs()) + 16.0
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(b)
+              & torch.isfinite(op) & torch.isfinite(ac) & torch.isfinite(det))
+    trusted = (finite & (a > 0) & (c > 0) & (ac >= CULL_AC_MIN)
+               & (det > CULL_DET_MIN * ac)
+               & (torch.maximum(a, c) * r * r < CULL_QUAD_MAX))
+    t = (torch.clamp(2.0 * torch.log(255.0 * op), min=0.0) * CULL_T_REL
+         + CULL_T_ABS)
+
+    def axis(m, num):
+        ext = torch.sqrt(t * num / det) * CULL_EXT_REL + CULL_EXT_ABS
+        lo = torch.clamp(m - ext, -1.0, 16.0).ceil().long().clamp(min=0)
+        hi = torch.clamp(m + ext, -1.0, 16.0).floor().long().clamp(max=15)
+        return lo, hi
+
+    (x_lo, x_hi), (y_lo, y_hi) = axis(mx, c), axis(my, a)
+    empty = (op < CULL_OP_MIN) | (x_lo > x_hi) | (y_lo > y_hi)
+    whole = torch.stack([torch.zeros_like(x_lo), torch.full_like(x_lo, 15)])
+    x_lo, x_hi, y_lo, y_hi = (
+        torch.where(trusted, torch.where(empty, e, v), w)
+        for v, e, w in zip((x_lo, x_hi, y_lo, y_hi), (16, -1, 16, -1),
+                           (whole[0], whole[1], whole[0], whole[1])))
+    return x_lo, x_hi, y_lo, y_hi
 
 
 def _plain_walk(packed, src, counts, starts, tiles_x, chunk):
@@ -151,6 +208,15 @@ def composite_forward_plain(packed, src, counts, starts, tiles_x, chunk=128):
     )[0]
 
 
+def _require_rows(packed: torch.Tensor) -> None:
+    """The kernels gather each 40-byte row as five 8-byte copies."""
+    if packed.shape[1] != NUM_FIELDS:
+        raise ValueError(f"packed: expected (g, {NUM_FIELDS}), got "
+                         f"{tuple(packed.shape)}")
+    if packed.data_ptr() % 8:
+        raise ValueError("packed: must be 8-byte aligned")
+
+
 def composite_forward_cuda(
     packed: torch.Tensor, src: torch.Tensor, counts: torch.Tensor,
     starts: torch.Tensor, tiles_x: int,
@@ -162,9 +228,7 @@ def composite_forward_cuda(
     """
     dev = packed.device
     cuda_lib.require(packed, "packed", torch.float32, 2, dev)
-    if packed.shape[1] != NUM_FIELDS:
-        raise ValueError(f"packed: expected (g, {NUM_FIELDS}), got "
-                         f"{tuple(packed.shape)}")
+    _require_rows(packed)
     cuda_lib.require(src, "src", torch.int32, 1, dev)
     cuda_lib.require(counts, "counts", torch.int32, 1, dev)
     cuda_lib.require(starts, "starts", torch.int32, 1, dev)
@@ -250,9 +314,7 @@ def composite_backward_cuda(
     """
     dev = packed.device
     cuda_lib.require(packed, "packed", torch.float32, 2, dev)
-    if packed.shape[1] != NUM_FIELDS:
-        raise ValueError(f"packed: expected (g, {NUM_FIELDS}), got "
-                         f"{tuple(packed.shape)}")
+    _require_rows(packed)
     cuda_lib.require(src, "src", torch.int32, 1, dev)
     cuda_lib.require(counts, "counts", torch.int32, 1, dev)
     cuda_lib.require(starts, "starts", torch.int32, 1, dev)

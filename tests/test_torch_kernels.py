@@ -49,6 +49,7 @@ from spfsplatv2_tpu_torch.ops.segscan import (
 sys.path.insert(0, str(Path(__file__).parent))
 from torch_port_common import (  # noqa: E402
     CAMERA_K,
+    adversarial_entries,
     assert_images_close,
     cuda_device,  # noqa: F401  (fixture)
     np_scene,
@@ -240,6 +241,131 @@ def test_composite_backward_kernel_matches_plain(cuda_device, base, cov_scale):
     g = packed.shape[0]
     ours, ref = accumulate_rows(rows, bins, g), accumulate_rows(plain, bins, g)
     assert torch.allclose(ours, ref, atol=2e-3 * float(ref.abs().max()))
+
+
+def _tile_rows(rng, local, tile, tiles_x):
+    """Packed rows (k, 10) in tile `tile` from tile-local columns (mx, my,
+    a, b, c, op), with seeded colors and depths."""
+    mx, my, a, b, c, op = local
+    k = mx.shape[0]
+    ox, oy = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+    return np.stack([mx + ox, my + oy, a, b, c, *rng.uniform(0, 1, (3, k)),
+                     op, rng.uniform(1, 5, k)], -1).astype(np.float32)
+
+
+def _manual_bins(rows_per_tile, device):
+    """Kernel inputs for hand-made tiles: `rows_per_tile` lists each tile's
+    rows (k_t, 10) in walk order; src is the identity over their slots."""
+    packed = np.concatenate(rows_per_tile)
+    counts = np.asarray([r.shape[0] for r in rows_per_tile], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    src = np.arange(packed.shape[0], dtype=np.int32)
+    return [torch.from_numpy(x).to(device) for x in (packed, src, counts,
+                                                     starts)]
+
+
+def _check_composite_pair(args, device):
+    """K1 against its plain version, K2 against its plain version (rows),
+    and K2 rerun bit for bit."""
+    out = composite_forward_cuda(*args)
+    torch.cuda.synchronize()
+    plain = composite_forward_plain(*args)
+    for sl, atol, hard in ((slice(0, 3), 3e-5, 5e-3), (slice(3, 4), 3e-4, 2e-2),
+                           (slice(4, 6), 3e-5, 5e-3)):
+        assert_images_close(out[..., sl].cpu(), plain[..., sl].cpu(),
+                            atol=atol, hard_atol=hard)
+    assert float(out[..., 6:].abs().max()) == 0.0
+    cot = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        out.shape).astype(np.float32)).to(device)
+    rows = composite_backward_cuda(*args, out, cot)
+    again = composite_backward_cuda(*args, out, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, again)
+    want = composite_backward_plain(*args, out, cot)
+    n_live = int(args[2].sum())
+    bad = ((rows - want).abs() > 1e-4 * want.abs().amax(0)).any(-1)
+    assert int(bad.sum()) <= max(1, int(1e-3 * n_live))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_composite_kernels_on_adversarial_entries(cuda_device, seed):
+    """K1 and K2 on tiles of entries that stress the cull: near-singular,
+    indefinite and negative conics, opacity at a few ulp of 1/255 and of
+    1, means just outside the tile, wide Gaussians; 6 tiles, 2 of them
+    empty."""
+    rng = np.random.default_rng(seed)
+    tiles_x, tiles = 3, []
+    for t in range(6):
+        if t in (1, 4):
+            tiles.append(np.zeros((0, NUM_FIELDS), np.float32))
+            continue
+        cols = _adversarial(seed * 10 + t, 700)
+        order = rng.permutation(cols[0].shape[0])
+        tiles.append(_tile_rows(rng, [c[order] for c in cols], t, tiles_x))
+    packed, src, counts, starts = _manual_bins(tiles, cuda_device)
+    _check_composite_pair((packed, src, counts, starts, tiles_x), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad_tiles", [0, 300])
+def test_composite_kernels_long_and_stopping_tiles(cuda_device, pad_tiles):
+    """A tile of 2500 faint entries (more than one staging batch of either
+    size, no pixel stops), an empty tile, and a tile whose top half is
+    covered by opaque Gaussians (its upper warps stop early, the lower
+    ones never do); `pad_tiles` empty tiles more select the kernels'
+    smaller batches."""
+    rng = np.random.default_rng(11)
+    tiles_x = 3
+
+    def gauss(k, x, y, sigma, op):
+        s2 = sigma**2
+        return [x.astype(np.float32), y.astype(np.float32),
+                np.full(k, 1 / s2, np.float32), np.zeros(k, np.float32),
+                np.full(k, 1 / s2, np.float32), np.full(k, op, np.float32)]
+
+    faint = gauss(2500, rng.uniform(-2, 18, 2500), rng.uniform(-2, 18, 2500),
+                  1.5, 0.02)
+    # Three opaque Gaussians on each pixel of rows 0-3 (none reaches row 8).
+    gy, gx = np.mgrid[0:4, 0:16].reshape(2, -1).repeat(3, axis=1)
+    opaque = gauss(gx.shape[0], gx, gy, 1.0, 0.99)
+    below = gauss(800, rng.uniform(0, 16, 800), rng.uniform(0, 16, 800), 1.5,
+                  0.03)
+    stop = [np.concatenate([a, b]) for a, b in zip(opaque, below)]
+    tiles = [_tile_rows(rng, faint, 0, tiles_x),
+             np.zeros((0, NUM_FIELDS), np.float32),
+             _tile_rows(rng, stop, 2, tiles_x)]
+    tiles += [np.zeros((0, NUM_FIELDS), np.float32)] * pad_tiles
+    packed, src, counts, starts = _manual_bins(tiles, cuda_device)
+    out = _check_composite_pair((packed, src, counts, starts, tiles_x),
+                                cuda_device)
+    # Three alpha = 0.99 entries on one pixel take T below 1e-4, so each
+    # pixel of rows 0-3 stops (at T_fin <= 0.01); rows 8-15 and the long
+    # tile keep T far above 1e-4.
+    t_fin = out[2, :, 5].reshape(16, 16)
+    assert float(t_fin[:4].max()) <= 0.0101
+    assert float(t_fin[8:].min()) > 0.1
+    assert float(out[0, :, 5].min()) > 0.1
+
+
+@pytest.mark.cuda
+def test_composite_backward_is_deterministic(cuda_device):
+    """K2 reruns give the same bits: no atomics, warp partials summed in
+    a fixed order."""
+    packed, bins = _scene_bins(cuda_device, 2, 4.0, n=3000)
+    args = (packed, bins.src, bins.counts, bins.starts, bins.num_tiles_xy[1])
+    out = composite_forward_cuda(*args)
+    cot = torch.randn(out.shape, device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(0))
+    runs = [composite_backward_cuda(*args, out, cot) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def _adversarial(seed, n):
+    """Finite adversarial tile-local entries (torch_port_common)."""
+    return adversarial_entries(seed, n, finite_only=True)
 
 
 @pytest.mark.cuda

@@ -44,6 +44,83 @@ def np_scene(seed, n=200, d_sh=25, cov_scale=1.0):
     return tuple(map(f32, (means, scales, quats, harmonics, opacities)))
 
 
+def conics(rng, n, log_sigma, log_ratio):
+    """Inverses of rotated 2-D covariances with the given (log10) major
+    sigma in pixels and (log10) axis ratio."""
+    s1 = 10.0 ** rng.uniform(*log_sigma, n)
+    s2 = s1 / 10.0 ** rng.uniform(*log_ratio, n)
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    cxx = cs**2 * s1**2 + sn**2 * s2**2
+    cyy = sn**2 * s1**2 + cs**2 * s2**2
+    cxy = cs * sn * (s1**2 - s2**2)
+    det = cxx * cyy - cxy**2
+    return cyy / det, -cxy / det, cxx / det
+
+
+def near(rng, n, x):
+    """x moved by a few float32 ulp."""
+    x = np.asarray(x, np.float32)
+    steps = rng.integers(-4, 5, n)
+    return np.array([np.float32(v) for v in (
+        x * (1 + steps * np.finfo(np.float32).eps))], np.float32)
+
+
+def adversarial_entries(seed, n=4000, finite_only=False):
+    """Seeded entries that stress the compositing kernels' cull, as float32
+    columns (mx, my, a, b, c, op) with tile-local means: pixel-sized and
+    wide Gaussians in and around the tile, near-singular, indefinite and
+    negative conics, opacity within a few ulp of 1/255 and of 1, means
+    just outside the tile, and (unless `finite_only`) non-finite fields."""
+    rng = np.random.default_rng(seed)
+    k = n // 8
+    cases = []
+    # Pixel-sized and wide Gaussians, means in and around the tile.
+    for log_sigma, log_ratio in (((-0.5, 0.5), (0, 0.5)), ((0.5, 2.0), (0, 1)),
+                                 ((0, 1), (1.5, 2.0))):
+        a, b, c = conics(rng, k, log_sigma, log_ratio)
+        cases.append((rng.uniform(-20, 36, k), rng.uniform(-20, 36, k), a, b,
+                      c, rng.uniform(0.0, 1.0, k)))
+    # Near-singular conics: axis ratios up to 1e4, both sides of the
+    # conditioning limit.
+    a, b, c = conics(rng, k, (0, 1.5), (2.0, 4.0))
+    cases.append((rng.uniform(-8, 24, k), rng.uniform(-8, 24, k), a, b, c,
+                  rng.uniform(0.05, 1.0, k)))
+    # Indefinite, negative and degenerate conics.
+    a = rng.uniform(-1, 1, k)
+    c = rng.uniform(-1, 1, k)
+    b = np.sqrt(np.abs(a * c)) * rng.uniform(0.9, 1.5, k)
+    cases.append((rng.uniform(0, 16, k), rng.uniform(0, 16, k), a, b, c,
+                  rng.uniform(0.05, 1.0, k)))
+    # Opacity at a few ulp of 1/255 and of 1, means on and off pixels.
+    a, b, c = conics(rng, k, (-0.3, 0.7), (0, 1))
+    op = np.where(rng.uniform(size=k) < 0.5,
+                  near(rng, k, np.float32(1) / np.float32(255)),
+                  near(rng, k, np.minimum(1.0, rng.choice([0.99, 1.0], k))))
+    m = np.where(rng.uniform(size=(2, k)) < 0.5,
+                 rng.integers(-2, 18, (2, k)).astype(np.float64),
+                 rng.uniform(-2, 18, (2, k)))
+    cases.append((m[0], m[1], a, b, c, op))
+    # Means just outside the tile: a box edge at a few ulp of the border.
+    a, b, c = conics(rng, k, (-0.5, 0.5), (0, 0.5))
+    ext = np.sqrt(2 * np.log(255 * 0.9) * c / (a * c - b * b))
+    side = rng.choice([-1.0, 1.0], k)
+    mx = np.where(side < 0, -ext, 15 + ext) * (1 + rng.uniform(-1e-3, 1e-3, k))
+    cases.append((mx, rng.uniform(0, 16, k), a, b, c, np.full(k, 0.9)))
+    # Non-finite fields.
+    if not finite_only:
+        a, b, c = conics(rng, k, (0, 1), (0, 1))
+        bad = np.array([np.nan, np.inf, -np.inf])[rng.integers(0, 3, k)]
+        field = rng.integers(0, 6, k)
+        vals = [rng.uniform(0, 16, k), rng.uniform(0, 16, k), a, b, c,
+                rng.uniform(0.05, 1.0, k)]
+        for i in range(6):
+            vals[i] = np.where(field == i, bad, vals[i])
+        cases.append(tuple(vals))
+    return [np.concatenate([case[i] for case in cases]).astype(np.float32)
+            for i in range(6)]
+
+
 CAMERA_K = np.asarray([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], np.float32)
 
 
