@@ -7,7 +7,8 @@ toolkit:
     python3 chip_smoke.py
 
 Phases, each printing JSON lines:
-  1. environment: torch, the card, its power limit, the TF32 settings;
+  1. environment: torch, the card, its power limit, the TF32 settings,
+     whether `yaml` and `PIL` import and where `g++` is;
   2. build: every kernel (K1-K5), compiled from `csrc/` with one `nvcc`
      per source, all started together;
   3. K3 (`cumsum_1d`, csrc/prefix_scan.cu) against its plain version
@@ -66,7 +67,21 @@ Phases, each printing JSON lines:
      those steps, and the (b, h, n_q, n_k) that their autograd gave K5's
      backward kernels; then K5's backward pair at each of those shapes
      (phase "K5_train"): the first batch element held against the plain
-     versions, both kernels timed beside SDPA's backward.
+     versions, both kernels timed beside SDPA's backward;
+ 14. the command line, `spfsplatv2_tpu_torch.main.main([...])` in process
+     with `--config experiments/spfsplatv2/re10k.yaml` and overrides only
+     (phases "cli_*"): synthetic train, val and test chunks written under
+     `build/cli/` ("cli_data"); 3 training steps at the published widths,
+     b = 16 at 256^2, the memory guard choosing the microbatch, one
+     validation, the final checkpoint ("cli_train": step times, data
+     waits, the guard's probes, K1-K3 launches against the count the
+     steps, probes and validation render, the checkpoint's seconds and
+     bytes); the guard alone under a budget below the step's peak, which
+     must halve the microbatch and take no step ("cli_guard"); mode=test
+     from that checkpoint with images saved and seeded LPIPS, the five
+     artifact files, the first saved PNG read back against its frame
+     ("cli_test"); mode=eval_pose with the native PnP library built by
+     g++ ("cli_eval_pose"); then `build/cli/` is deleted.
 Then the kernels line (each kernel's times, bound, launches on its path
 and check results), the card's name and power limit, and the result.
 
@@ -77,7 +92,10 @@ checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -129,6 +147,18 @@ K3_PROFILE_CALLS = 50
 # 12 + 12 decoder blocks; the 12th call (encoder block 12) is held
 # against the plain version on its real q, k, v.
 K5_PER_PASS, K5_CHECK_CALL = 48, 11
+# The command line (phases "cli_*"): the flagship preset with overrides
+# only.  Synthetic chunks at the preset's original_image_shape: 16 train
+# scenes (one batch of 16 without a scene twice), 26 frames each (the
+# preset's curriculum starts at a 25-frame context gap), one val scene
+# and two test scenes read through an evaluation index.
+CLI_PRESET = "experiments/spfsplatv2/re10k.yaml"
+CLI_SCENES = {"train": (16, 26), "val": (1, 26), "test": (2, 8)}
+CLI_INDEX = {"scene_000": {"context": [0, 7], "target": [3, 4], "overlap": 0.3},
+             "scene_001": {"context": [1, 6], "target": [4], "overlap": 0.6}}
+CLI_STEPS, CLI_VAL_EVERY = 3, 2
+# Below phase 12's 33.8 GB peak at b = 16: the guard must halve.
+CLI_LOW_BUDGET_GB = 24.0
 
 
 def emit(obj: dict) -> None:
@@ -460,6 +490,217 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev) -> dict:
             "sdpa_backward_ms": sdpa_bwd}
 
 
+def cli_phases(torch, repo: Path, dev) -> dict:
+    """The command line in process, phases "cli_data", "cli_train",
+    "cli_guard", "cli_test" and "cli_eval_pose"; returns each call's
+    kernel launch counts."""
+    import numpy as np
+    from PIL import Image
+
+    from spfsplatv2_tpu_torch import main as cli
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.data.synthetic import write_synthetic_dataset
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.utils import pnp, visualization
+
+    root = repo / "build" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir, test_dir = root / "out", root / "test_out"
+
+    # ---- 14. cli_data ---------------------------------------------------
+    t0 = time.perf_counter()
+    for stage, (scenes, frames) in CLI_SCENES.items():
+        write_synthetic_dataset(root, scenes, frames, (360, 640), stage,
+                                processes=min(8, os.cpu_count() or 1))
+    index = root / "index.json"
+    index.write_text(json.dumps(CLI_INDEX))
+    emit({"phase": "cli_data", "seconds": time.perf_counter() - t0,
+          "scenes_frames": CLI_SCENES, "image_hw": [360, 640],
+          "chunk_bytes": {s: (root / s / "000000.torch").stat().st_size
+                          for s in CLI_SCENES}})
+
+    overrides = [f"dataset.roots=[{root}]", f"trainer.max_steps={CLI_STEPS}",
+                 f"trainer.val_check_interval={CLI_VAL_EVERY}",
+                 "checkpointing.pretrained_weights=null",
+                 f"output_dir={out_dir}",
+                 "checkpointing.every_n_train_steps=0",
+                 "train.print_log_every_n_steps=1",
+                 f"evaluation_sampler.index_path={index}",
+                 f"test.output_path={test_dir}"]
+    argv = ["--config", str(repo / CLI_PRESET), *overrides]
+    cfg = load_config([repo / CLI_PRESET], overrides)
+    batch = cfg.trainer.batch_size
+
+    # ---- 15. cli_train: python -m spfsplatv2_tpu_torch.main (mode=train)
+    step_ms, logged, guards, saves = [], {}, [], []
+    real = {k: getattr(loop, k) for k in ("make_train_step", "run_training",
+                                          "save_checkpoint")}
+
+    def make_train_step(*args, **kwargs):
+        step = real["make_train_step"](*args, **kwargs)
+
+        def timed(state, batch_):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = step(state, batch_)
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        return timed
+
+    def run_training(cfg_, log_fn=None, **kwargs):
+        def log(step, metrics):
+            logged.setdefault(step, {}).update(metrics)
+            log_fn(step, metrics)
+
+        result = real["run_training"](cfg_, log_fn=log, **kwargs)
+        guards.append(result["guard"])
+        return result
+
+    def save_checkpoint(ckpt_dir, state, step):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        path = real["save_checkpoint"](ckpt_dir, state, step)
+        saves.append({"step": step, "seconds": time.perf_counter() - t,
+                      "bytes": path.stat().st_size})
+        return path
+
+    for name, fn in (("make_train_step", make_train_step),
+                     ("run_training", run_training),
+                     ("save_checkpoint", save_checkpoint)):
+        setattr(loop, name, fn)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+    finally:
+        for name, fn in real.items():
+            setattr(loop, name, fn)
+    train_s = time.perf_counter() - t0
+    train_counts = dict(cuda_lib.launch_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rc != 0 or len(step_ms) != CLI_STEPS or len(saves) != 1:
+        fail(f"cli_train: rc {rc}, {len(step_ms)} steps, {len(saves)} saves")
+    (guard,) = guards
+    probed = sum(p["microbatch"] for p in guard["probes"])
+    val_runs = len([s for s in range(1, CLI_STEPS) if s % CLI_VAL_EVERY == 0])
+    renders = CLI_STEPS * batch + probed
+    want = {"composite_forward": renders + 3 * val_runs,
+            "composite_backward": renders,
+            "cumsum_1d": 2 * (renders + 3 * val_runs)}
+    want = {k: want.get(k, 0) for k in train_counts}
+    if train_counts != want:
+        fail(f"cli_train launch counts {train_counts}, expected {want}")
+    losses = [m["loss/total"] for s, m in sorted(logged.items())
+              if "loss/total" in m]
+    if len(losses) != CLI_STEPS or not all(np.isfinite(losses)):
+        fail(f"cli_train losses {losses}")
+    ckpt_path = out_dir / "checkpoints" / "step_-1"
+    head = loop.load_checkpoint(ckpt_path)
+    if head["step"] != CLI_STEPS or head["count"] + head["skipped_count"] != CLI_STEPS:
+        fail(f"cli_train checkpoint at step {head['step']}, count "
+             f"{head['count']}, skipped {head['skipped_count']}")
+    n_params = sum(t.numel() for t in head["encoder"].values())
+    del head
+    emit({"phase": "cli_train", "preset": CLI_PRESET, "overrides": overrides,
+          "params": n_params, "batch": batch, "steps": CLI_STEPS,
+          "seconds": train_s, "step_ms": step_ms,
+          "data_wait_ms": [logged[s]["time/data_wait_ms"] for s in sorted(logged)
+                           if "time/data_wait_ms" in logged[s]],
+          "losses": losses,
+          "val": {k: v for m in logged.values() for k, v in m.items()
+                  if k.startswith("val/")},
+          "guard": guard, "launches": train_counts, "expected_launches": want,
+          "checkpoint_save": saves[0]})
+
+    # ---- 16. cli_guard: a budget below the step's peak halves ----------
+    low = load_config([repo / CLI_PRESET], overrides + [
+        f"trainer.hbm_budget_gb={CLI_LOW_BUDGET_GB}"])
+    cuda_lib.reset_launch_counts()
+    result = loop.run_training(low, max_steps=0, device=dev)
+    guard_counts = dict(cuda_lib.launch_counts)
+    low_guard = result["guard"]
+    took = (result["state"].step, result["state"].optimizer.count)
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+    probed = sum(p["microbatch"] for p in low_guard["probes"])
+    want = {k: 0 for k in guard_counts}
+    want.update(composite_forward=probed, composite_backward=probed,
+                cumsum_1d=2 * probed)
+    if not low_guard["microbatch"] < batch or took != (0, 0) or guard_counts != want:
+        fail(f"cli_guard: microbatch {low_guard['microbatch']}, steps and "
+             f"updates {took}, launches {guard_counts} (expected {want})")
+    emit({"phase": "cli_guard", "budget_gb": CLI_LOW_BUDGET_GB,
+          "guard": low_guard, "launches": guard_counts})
+
+    # ---- 17. cli_test: mode=test, images saved, seeded LPIPS ------------
+    saved = []
+    real_save_image, real_load = visualization.save_image, cli._load_encoder
+
+    def save_image(image, path):
+        saved.append((Path(path), np.array(image)))
+        real_save_image(image, path)
+
+    load_s = []
+
+    def load_encoder(cfg_, device):
+        t = time.perf_counter()
+        encoder = real_load(cfg_, device)
+        torch.cuda.synchronize(dev)
+        load_s.append(time.perf_counter() - t)
+        return encoder
+
+    visualization.save_image, cli._load_encoder = save_image, load_encoder
+    cuda_lib.reset_launch_counts()
+    try:
+        rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}",
+                              "test.save_image=true"])
+    finally:
+        visualization.save_image, cli._load_encoder = real_save_image, real_load
+    test_counts = dict(cuda_lib.launch_counts)
+    targets = sum(len(e["target"]) for e in CLI_INDEX.values())
+    want = {k: 0 for k in test_counts}
+    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    artifacts = ["scores_all.json", "scores_all_avg.json",
+                 "scores_sub_avg.json", "benchmark.json", "peak_memory.json"]
+    missing = [a for a in artifacts if not (test_dir / a).exists()]
+    if rc != 0 or missing or test_counts != want or len(saved) != targets:
+        fail(f"cli_test: rc {rc}, missing {missing}, launches {test_counts} "
+             f"(expected {want}), {len(saved)} images")
+    # The first scene's first saved frame, read back, against the writer's
+    # rule on the rendered frame it was given.
+    path, frame = saved[0]
+    png = np.asarray(Image.open(path))
+    expect = np.clip(frame * 255, 0, 255).astype(np.uint8)
+    if path.parent.parent.name != "scene_000" or not np.array_equal(png, expect):
+        fail(f"cli_test: {path} differs from its frame")
+    avg = json.loads((test_dir / "scores_all_avg.json").read_text())
+    bench = json.loads((test_dir / "benchmark.json").read_text())
+    emit({"phase": "cli_test", "scenes": len(CLI_INDEX), "targets": targets,
+          "launches": test_counts, "png_equals_frame": str(path.relative_to(root)),
+          "averages": avg, "request_times": bench,
+          "peak_memory": json.loads((test_dir / "peak_memory.json").read_text()),
+          "checkpoint_load_s": load_s})
+
+    # ---- 18. cli_eval_pose: mode=eval_pose -------------------------------
+    cuda_lib.reset_launch_counts()
+    rc = cli.main(argv + ["mode=eval_pose", f"checkpointing.load={ckpt_path}"])
+    pose_counts = dict(cuda_lib.launch_counts)
+    pose_file = test_dir / "pose_eval.json"
+    if rc != 0 or not pose_file.exists() or any(pose_counts.values()):
+        fail(f"cli_eval_pose: rc {rc}, launches {pose_counts}")
+    emit({"phase": "cli_eval_pose", "summary": json.loads(pose_file.read_text()),
+          "pnp_library": str(pnp.native_library().path.relative_to(repo)),
+          "pnp_build_seconds": pnp.native_library().build_seconds})
+    shutil.rmtree(root)
+    return {"cli_train_3_steps": train_counts, "cli_guard": guard_counts,
+            "cli_test": test_counts, "cli_eval_pose": pose_counts}
+
+
 def main() -> int:
     import torch
 
@@ -520,7 +761,12 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(), "nvidia_smi": smi,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+          # In fresh interpreters: the port needs Pillow, never PyYAML.
+          **{f"{mod}_imports": subprocess.run(
+              [sys.executable, "-c", f"import {mod}"],
+              capture_output=True).returncode == 0 for mod in ("yaml", "PIL")},
+          "gxx": shutil.which("g++")})
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1189,6 +1435,12 @@ def main() -> int:
         emit({"phase": "K5_train", "calls_per_2_steps": bwd_shapes.count(shape),
               **k5_train[shape]})
 
+    # ---- 14-18. the command line ---------------------------------------
+    del encoder, optimizer, state, train_step, long_train_step, lpips
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_counts = cli_phases(torch, repo, dev)
+
     # ---- kernels line, card, result -----------------------------------
     # Launches: each kernel's count over its path: K1-K3 over the training
     # path's 3 steps, K4 over the segscan step, K5's forward over the 3
@@ -1199,7 +1451,7 @@ def main() -> int:
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
              "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
              "serving_1024_3_requests": long_counts,
-             "train_1024_2_steps": long_train_counts}
+             "train_1024_2_steps": long_train_counts, **cli_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}

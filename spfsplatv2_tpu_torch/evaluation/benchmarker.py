@@ -1,15 +1,19 @@
-"""Wall-clock benchmarker (torch port of the timer of
+"""Wall-clock benchmarker + device memory stats (torch port of
 `spfsplatv2_tpu/evaluation/benchmarker.py`).
 
 On CUDA the timer synchronises the device before reading the clock at
 both ends, so a tag's time covers the device work enqueued inside it.
+`dump_memory` writes the card's peak, current and total bytes (all None
+off the card).
 """
 
 from __future__ import annotations
 
+import json
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+from pathlib import Path
 
 import torch
 
@@ -41,3 +45,21 @@ class Benchmarker:
                   "total_s": sum(ts)}
             for tag, ts in self.execution_times.items()
         }
+
+    def dump(self, path: str | Path) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.summarize(), indent=2))
+
+    def dump_memory(self, path: str | Path) -> None:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        stats = {"peak_bytes_in_use": None, "bytes_in_use": None,
+                 "bytes_limit": None}
+        if self.device.type == "cuda":
+            stats = {
+                "peak_bytes_in_use": torch.cuda.max_memory_allocated(self.device),
+                "bytes_in_use": torch.cuda.memory_allocated(self.device),
+                "bytes_limit": torch.cuda.mem_get_info(self.device)[1],
+            }
+        path.write_text(json.dumps({"device_0": stats}, indent=2))

@@ -1,14 +1,17 @@
-"""Test-set evaluation of one scene: novel-view synthesis + pose metrics.
-
-Torch port of `spfsplatv2_tpu/evaluation/evaluator.py:evaluate_example`,
-the serving path of `python -m spfsplatv2_tpu.main mode=test`:
+"""Test-set evaluator: novel-view synthesis + pose metrics over fixed
+indices (torch port of `spfsplatv2_tpu/evaluation/evaluator.py`), the
+serving path of `python -m spfsplatv2_tpu_torch.main mode=test`:
   * per-target encoding (the published protocol: context + ONE target per
     encoder call) or joint encoding;
   * optional test-time pose alignment through the renderer
     (`pose_align.align_poses`, kernel K2 on the card);
   * rendering the targets at the predicted poses with GT intrinsics;
-  * PSNR / SSIM / LPIPS and pose errors.
-Image and video saving and `use_estimated_focal` are not ported and raise.
+  * PSNR / SSIM / LPIPS and pose errors, bucketed by context overlap;
+  * artifacts: `<output_path>/<scene>/color/<index:06>.png` per target
+    view, and `summarize_and_dump`'s `scores_all.json`,
+    `scores_all_avg.json`, `scores_sub_avg.json` (per-overlap buckets),
+    `benchmark.json` and `peak_memory.json`.
+Video saving and `use_estimated_focal` are not ported and raise.
 
 The path runs under `torch.no_grad()` (the pose alignment enables
 autograd for itself) with TF32 off for matmuls and cuDNN convolutions
@@ -17,9 +20,12 @@ autograd for itself) with TF32 off for matmuls and cuDNN convolutions
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from spfsplatv2_tpu_torch.evaluation.benchmarker import Benchmarker
@@ -28,6 +34,7 @@ from spfsplatv2_tpu_torch.evaluation.metrics import (
     compute_pose_error,
     compute_psnr,
     compute_ssim,
+    pose_auc_summary,
 )
 from spfsplatv2_tpu_torch.evaluation.pose_align import align_poses
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
@@ -35,14 +42,12 @@ from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
 
 @dataclass
 class EvalConfig:
-    """The fields of the JAX EvalConfig that the port reads; the output
-    path comes back with image saving."""
-
     align_pose: bool = False
     pose_align_steps: int = 100
     opt_lr: float = 5e-4
     save_images: bool = False
     save_video: bool = False
+    output_path: str = "outputs/test"
     per_target_encoding: bool = True
     use_estimated_focal: bool = False
 
@@ -89,8 +94,8 @@ def evaluate_example(
     `lpips_params` is a `losses.lpips.LPIPS` module; its score is stored
     as "lpips", or "lpips_uncalibrated" unless `lpips_calibrated`.
     """
-    if eval_cfg.save_images or eval_cfg.save_video:
-        raise NotImplementedError("image and video saving is not ported yet")
+    if eval_cfg.save_video:
+        raise NotImplementedError("video saving is not ported yet")
     if eval_cfg.use_estimated_focal:
         raise NotImplementedError("use_estimated_focal is not ported yet")
     device = torch.device(device)
@@ -173,5 +178,131 @@ def evaluate_example(
         result["context_pose_transl_err_deg"] = _floats(tr)
     result["dropped_entries"] = [int(x) for x in dropped_entries.reshape(-1)]
     result["images"] = None
+    if eval_cfg.save_images:
+        from spfsplatv2_tpu_torch.utils.visualization import save_image
+
+        frames = torch.clamp(pred, 0, 1).cpu().numpy()
+        scene_dir = Path(eval_cfg.output_path) / str(result["scene"]) / "color"
+        indices = tgt.get("index", list(range(v_tgt)))
+        for i, frame in enumerate(frames):
+            save_image(frame, scene_dir / f"{indices[i]:0>6}.png")
+        result["images"] = frames
     result["rendered"] = pred
     return result
+
+
+def summarize_and_dump(
+    results: list[dict], output_path: str | Path, benchmarker: Benchmarker
+) -> dict:
+    """Aggregate per-scene results into the score artifacts."""
+    out_dir = Path(output_path)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def flat(key, rs=results):
+        return [x for r in rs for x in (r.get(key) or [])]
+
+    def averages(rs):
+        out = {
+            "psnr": float(np.mean(flat("psnr", rs))) if flat("psnr", rs) else None,
+            "ssim": float(np.mean(flat("ssim", rs))) if flat("ssim", rs) else None,
+            "lpips": (
+                float(np.mean(flat("lpips", rs))) if flat("lpips", rs) else None
+            ),
+            "num_scenes": len(rs),
+        }
+        if flat("lpips_uncalibrated", rs):
+            out["lpips_uncalibrated"] = float(
+                np.mean(flat("lpips_uncalibrated", rs))
+            )
+        rot = np.asarray(flat("pose_rot_err_deg", rs), np.float64)
+        tr = np.asarray(flat("pose_transl_err_deg", rs), np.float64)
+        if rot.size:
+            out["pose"] = pose_auc_summary(rot, tr)
+        return out
+
+    summary = averages(results)
+
+    buckets: dict[str, list[dict]] = {}
+    for r in results:
+        tag = r.get("overlap_tag")
+        if tag:
+            buckets.setdefault(tag, []).append(r)
+    sub_avg = {tag: averages(rs) for tag, rs in sorted(buckets.items())}
+
+    scores_all = [
+        {k: v for k, v in r.items() if k not in ("images", "rendered")}
+        for r in results
+    ]
+    (out_dir / "scores_all.json").write_text(json.dumps(scores_all, indent=2))
+    (out_dir / "scores_all_avg.json").write_text(json.dumps(summary, indent=2))
+    (out_dir / "scores_sub_avg.json").write_text(json.dumps(sub_avg, indent=2))
+    benchmarker.dump(out_dir / "benchmark.json")
+    benchmarker.dump_memory(out_dir / "peak_memory.json")
+    if sub_avg:
+        summary["by_overlap"] = sub_avg
+    return summary
+
+
+class RunningMetricTables:
+    """Running console metric tables during the test loop: overall + one
+    table per context-overlap bucket.
+
+    update() folds one scene's scalar metrics into running means; render()
+    returns the formatted tables printed after every scene.
+    """
+
+    def __init__(self, method: str = "ours"):
+        self.method = method
+        self._sums: dict[str, float] = {}
+        self._counts: dict[str, int] = {}
+        self._sub_sums: dict[str, dict[str, float]] = {}
+        self._sub_counts: dict[str, dict[str, int]] = {}
+
+    @staticmethod
+    def _scene_scalars(result: dict) -> dict[str, float]:
+        out = {}
+        for key in ("psnr", "ssim", "lpips", "lpips_uncalibrated",
+                    "pose_rot_err_deg", "pose_transl_err_deg"):
+            vals = result.get(key)
+            if vals:
+                out[key] = float(np.mean(vals))
+        return out
+
+    def update(self, result: dict) -> None:
+        metrics = self._scene_scalars(result)
+        for k, v in metrics.items():
+            self._sums[k] = self._sums.get(k, 0.0) + v
+            self._counts[k] = self._counts.get(k, 0) + 1
+        tag = result.get("overlap_tag")
+        if tag:
+            sums = self._sub_sums.setdefault(tag, {})
+            counts = self._sub_counts.setdefault(tag, {})
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v
+                counts[k] = counts.get(k, 0) + 1
+
+    def means(self, tag: str | None = None) -> dict[str, float]:
+        sums = self._sums if tag is None else self._sub_sums.get(tag, {})
+        counts = self._counts if tag is None else self._sub_counts.get(tag, {})
+        return {k: sums[k] / counts[k] for k in sums}
+
+    @staticmethod
+    def _table(means: dict[str, float], method: str) -> str:
+        if not means:
+            return "(no metrics yet)"
+        keys = list(means)
+        widths = [max(len(k), 8) for k in keys]
+        header = "  ".join(["Method".ljust(8)]
+                           + [k.ljust(w) for k, w in zip(keys, widths)])
+        row = "  ".join(
+            [method.ljust(8)]
+            + [f"{means[k]:.3f}".ljust(w) for k, w in zip(keys, widths)]
+        )
+        return f"{header}\n{row}"
+
+    def render(self) -> str:
+        lines = ["All Pairs:", self._table(self.means(), self.method)]
+        for tag in sorted(self._sub_sums):
+            lines.append(f"Overlap: {tag}")
+            lines.append(self._table(self.means(tag), self.method))
+        return "\n".join(lines)

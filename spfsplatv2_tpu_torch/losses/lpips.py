@@ -10,9 +10,10 @@ space and summed over the five stages.
 
 Public functions take (batch, h, w, 3) images, the JAX package's layout.
 Weights come from a flax param tree through `utils/from_flax.py` (the
-module and parameter names follow the flax ones) or from `init_weights`,
-a seeded init with the flax initializers' rules.  Neither is the
-canonical LPIPS: those weights are not in the repository.
+module and parameter names follow the flax ones), from `init_weights`,
+a seeded init with the flax initializers' rules, or from an
+`lpips.LPIPS(net="vgg")` state_dict file (`get_lpips`).  The canonical
+LPIPS weights are not in the repository.
 """
 
 from __future__ import annotations
@@ -99,6 +100,53 @@ def build_lpips(seed: int = 0, device: str | torch.device = "cuda") -> LPIPS:
         model = LPIPS()
     gen = torch.Generator(device=device).manual_seed(seed)
     return model.init_weights(gen).eval().requires_grad_(False)
+
+
+# torchvision VGG16 feature indices of the convolutions in each LPIPS slice.
+_SLICE_CONVS = {1: (0, 2), 2: (5, 7), 3: (10, 12, 14), 4: (17, 19, 21),
+                5: (24, 26, 28)}
+
+
+def from_lpips_state_dict(torch_state: dict) -> dict[str, torch.Tensor]:
+    """An `lpips.LPIPS(net="vgg")` state_dict -> this module's.
+
+    Keys there: net.slice{1..5}.{idx}.weight/bias (OIHW, as here) and
+    lin{0..4}.model.1.weight, a (1, C, 1, 1) convolution.
+    """
+    out = {}
+    for s, idxs in _SLICE_CONVS.items():
+        for i, idx in enumerate(idxs):
+            for leaf in ("weight", "bias"):
+                out[f"vgg.conv{s}_{i + 1}.{leaf}"] = torch_state[
+                    f"net.slice{s}.{idx}.{leaf}"]
+    for s in range(len(VGG_STAGES)):
+        out[f"lin{s}"] = torch_state[f"lin{s}.model.1.weight"][0, :, 0, 0]
+    return out
+
+
+def get_lpips(use_lpips: bool, weights_path: str | None = None,
+              device: str | torch.device = "cuda"):
+    """-> (LPIPS module or None, calibrated).
+
+    With `weights_path` (an `lpips.LPIPS(net="vgg")` state_dict file) the
+    weights are those and `calibrated` is True; without it the VGG
+    features are random ones from seed 0, fine as a training prior, and
+    `calibrated` is False so that metric files label the score
+    "lpips_uncalibrated".
+    """
+    if not use_lpips:
+        return None, True
+    if not weights_path:
+        print("WARNING: no LPIPS weights path; using seeded random VGG "
+              "features (set loss.lpips_weights_path for canonical LPIPS). "
+              "Reported metrics will be labeled 'lpips_uncalibrated'.")
+        return build_lpips(0, device), False
+    state = torch.load(weights_path, map_location="cpu", weights_only=True)
+    device = torch.device(device)
+    with device:
+        model = LPIPS()
+    model.load_state_dict(from_lpips_state_dict(state), strict=True)
+    return model.eval().requires_grad_(False), True
 
 
 def lpips_distances(model: LPIPS, prediction, target) -> torch.Tensor:

@@ -50,6 +50,8 @@ class CrocoBackboneConfig:
     rope_base: float = 100.0
     intrinsics_token: bool = True
     pose_token: bool = True
+    # "dust3r"; the JAX package's "manyar" embed is not ported and raises.
+    patch_embed_cls: str = "dust3r"
     compute_dtype: str = "bfloat16"
     # Recompute transformer blocks in the backward pass: O(depth) activation
     # memory for the b=16 flagship training batch.
@@ -144,6 +146,9 @@ class MultiViewDecoderBlock(nn.Module):
 class MaskedCrocoBackbone(nn.Module):
     def __init__(self, cfg: CrocoBackboneConfig = CrocoBackboneConfig()):
         super().__init__()
+        if cfg.patch_embed_cls != "dust3r":
+            raise NotImplementedError(
+                f"patch_embed_cls={cfg.patch_embed_cls!r} is not ported")
         self.cfg = cfg
         cdt = cfg.dtype
         e, d = cfg.enc_embed_dim, cfg.dec_embed_dim

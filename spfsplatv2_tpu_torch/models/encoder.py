@@ -63,6 +63,8 @@ class SPFSplatV2Config:
     dpt_last_dim: int = 128
     dpt_layer_dims: tuple[int, ...] = (96, 192, 384, 768)
     estimating_pose: bool = True
+    # Focal estimation is not ported; the encoder raises when it is set.
+    estimating_focal: bool = False
     pose_make_baseline_1: bool = False
     pose_make_relative: bool = True
     input_mean: float = 0.5
@@ -75,6 +77,8 @@ class SPFSplatV2Config:
 class SPFSplatV2Encoder(nn.Module):
     def __init__(self, cfg: SPFSplatV2Config = SPFSplatV2Config()):
         super().__init__()
+        if cfg.estimating_focal:
+            raise NotImplementedError("estimating_focal is not ported yet")
         self.cfg = cfg
         bb = cfg.backbone
         self.backbone = MaskedCrocoBackbone(bb)

@@ -17,6 +17,9 @@ from spfsplatv2_tpu_torch.models.croco.layers import Dense
 class PoseHeadConfig:
     init_t: bool = True
     use_homogeneous: bool = False
+    # Read by the v1 encoder's config only (pooled encoder + decoder
+    # tokens); this head takes the pose token either way.
+    concat_enc: bool = False
     min_scale: float = 0.01
     max_scale: float = 4.0
 

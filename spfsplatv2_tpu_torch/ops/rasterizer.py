@@ -5,7 +5,7 @@ Backends:
   * "prefix"    -- project, prefix binning, then per-tile compositing
                    (`raster_cuda.composite_prefix`: kernel K1 on CUDA, its
                    plain version on CPU).  The JAX package's "pallas"
-                   backend; the default.
+                   backend; "auto", the default, selects it.
   * "reference" -- the dense O(pixels x gaussians) oracle.
 The JAX package's pure-XLA "tiled" backend is not ported.
 """
@@ -24,8 +24,10 @@ from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
 
 @dataclass(frozen=True)
 class RasterizerConfig:
-    backend: str = "prefix"
+    backend: str = "auto"
     max_tiles_per_gaussian: int = 16
+    # The JAX "tiled" backend's per-tile cap; no backend of the port reads it.
+    max_per_tile: int = 2048
     chunk: int = 128
     scale_invariant: bool = True
     use_sh: bool = True
@@ -68,7 +70,7 @@ def _render_one(means, covariances, harmonics, opacities, c2w, intrinsics,
     dropped = torch.zeros((), dtype=torch.int32, device=means.device)
     if cfg.backend == "reference":
         color, depth, alpha = composite_reference(proj, image_shape, background)
-    elif cfg.backend == "prefix":
+    elif cfg.backend in ("auto", "prefix"):
         bins = bin_gaussians_prefix(
             proj, image_shape, cfg.max_tiles_per_gaussian, cfg.chunk,
             entry_budget(cfg, means.shape[0]),

@@ -34,6 +34,9 @@ class LossConfig:
     lpips_apply_after_step: int = 0
     reproj: ReprojConfig = field(default_factory=ReprojConfig)
     use_lpips: bool = True
+    # An `lpips.LPIPS(net="vgg")` state_dict file (`losses/lpips.py:
+    # get_lpips`); None = seeded random VGG features.
+    lpips_weights_path: str | None = None
 
 
 @dataclass
@@ -243,6 +246,10 @@ def make_train_step(
         return state, metrics
 
     return step
+
+
+class HBMBudgetError(RuntimeError):
+    """The train step's peak device memory exceeds the budget."""
 
 
 def init_train_state(encoder, optimizer: Optimizer) -> TrainState:

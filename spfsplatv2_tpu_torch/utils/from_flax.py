@@ -1,4 +1,5 @@
-"""Flax param tree -> the port's `state_dict`.
+"""Flax param tree -> the port's `state_dict`, and a JAX train state ->
+the port's checkpoint.
 
 Inverts the layouts that `spfsplatv2_tpu/utils/ckpt_convert.py` converts
 from torch (the port keeps its own copy of the rules):
@@ -61,3 +62,20 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def checkpoint_from_flax(params: Mapping, mu: Mapping, nu: Mapping, count: int,
+                         step: int, skipped_count: int = 0) -> dict:
+    """A JAX `TrainState` (as numpy trees) -> the port's checkpoint dict
+    (`training/loop.py:checkpoint_dict`).
+
+    `params` is the param tree; `mu` and `nu` are optax AdamW's first and
+    second moments over the same tree (the label groups' moments merged);
+    `count` is AdamW's count of applied updates, `step` the state's step
+    and `skipped_count` the skip wrapper's count.  The moments take the
+    weights' layouts.
+    """
+    return {"step": int(step), "count": int(count),
+            "skipped_count": int(skipped_count),
+            "encoder": flax_to_state_dict(params),
+            "mu": flax_to_state_dict(mu), "nu": flax_to_state_dict(nu)}

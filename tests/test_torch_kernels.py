@@ -51,6 +51,8 @@ from torch_port_common import (  # noqa: E402
     CAMERA_K,
     adversarial_entries,
     assert_images_close,
+    TINY_BACKBONE,
+    TINY_HEADS,
     cuda_device,  # noqa: F401  (fixture)
     np_scene,
     to_torch,
@@ -574,9 +576,63 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
         flash_attention(*[t[..., :32].contiguous() for t in (q, k, v)], 0.125)
 
 
+@pytest.mark.cuda
+def test_memory_guard_probe_moves_nothing_on_the_card(cuda_device):
+    """`training/loop.py:probe_peak_gb` reads a peak and changes no
+    parameter, gradient, moment, count or RNG state."""
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
+    from spfsplatv2_tpu_torch.models.encoder import (
+        SPFSplatV2Config,
+        build_encoder,
+    )
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
+    from spfsplatv2_tpu_torch.training.step import LossConfig, init_train_state
+
+    enc = build_encoder(SPFSplatV2Config(
+        backbone=CrocoBackboneConfig(**TINY_BACKBONE), **TINY_HEADS),
+        device=cuda_device)
+    state = init_train_state(enc, Optimizer(OptimizerConfig(),
+                                            enc.named_parameters()))
+    gen = torch.Generator().manual_seed(0)
+    for p in state.optimizer.params:
+        p.grad = (1e-3 * torch.randn(p.shape, generator=gen)).to(cuda_device)
+    state.optimizer.step()
+    state.step += 1
+    before = [p.detach().clone() for p in state.encoder.parameters()]
+    counts = (state.step, state.optimizer.count, state.optimizer.skipped_count)
+    moments = [t.clone() for t in loop.checkpoint_dict(state)["mu"].values()]
+    rng_state = torch.cuda.get_rng_state(cuda_device)
+    rng = np.random.default_rng(0)
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]])
+
+    def side(v):
+        return {"image": torch.as_tensor(rng.uniform(0, 1, (2, v, 32, 32, 3)),
+                                         dtype=torch.float32),
+                "intrinsics": k.expand(2, v, 3, 3).clone(),
+                "near": torch.ones(2, v), "far": torch.full((2, v), 100.0)}
+
+    batch = loop.to_device({"context": side(2), "target": side(1)}, cuda_device)
+    peak = loop.probe_peak_gb(state, batch, 1, dict(
+        image_shape=(32, 32), decoder_cfg=load_config().decoder,
+        loss_cfg=LossConfig(use_lpips=False), lpips=None,
+        training_context=False))
+    assert 0 < peak < 80
+    assert all(torch.equal(a, p) for a, p in zip(before,
+                                                 state.encoder.parameters()))
+    assert all(p.grad is None for p in state.encoder.parameters())
+    assert (state.step, state.optimizer.count,
+            state.optimizer.skipped_count) == counts
+    assert all(torch.equal(a, b) for a, b in zip(
+        moments, loop.checkpoint_dict(state)["mu"].values()))
+    assert torch.equal(rng_state, torch.cuda.get_rng_state(cuda_device))
+
+
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, imports in a process
-    where jax, flax and the JAX package cannot be imported."""
+    where jax, flax and the JAX package cannot be imported; the config
+    (YAML presets included) needs no PyYAML."""
     import subprocess
     import textwrap
 
@@ -595,6 +651,8 @@ def test_port_imports_without_jax():
                     raise ImportError("blocked: " + name)
 
         sys.meta_path.insert(0, Block())
+        import spfsplatv2_tpu_torch.config
+        assert "yaml" not in sys.modules
         import spfsplatv2_tpu_torch
         for m in pkgutil.walk_packages(spfsplatv2_tpu_torch.__path__,
                                        "spfsplatv2_tpu_torch."):
@@ -607,7 +665,19 @@ def test_port_imports_without_jax():
                      "spfsplatv2_tpu_torch.losses.reproj",
                      "spfsplatv2_tpu_torch.losses.mse",
                      "spfsplatv2_tpu_torch.evaluation.pose_align",
-                     "spfsplatv2_tpu_torch.utils.init"):
+                     "spfsplatv2_tpu_torch.utils.init",
+                     "spfsplatv2_tpu_torch.config",
+                     "spfsplatv2_tpu_torch.main",
+                     "spfsplatv2_tpu_torch.data.chunk_io",
+                     "spfsplatv2_tpu_torch.data.dataset",
+                     "spfsplatv2_tpu_torch.data.shims",
+                     "spfsplatv2_tpu_torch.data.synthetic",
+                     "spfsplatv2_tpu_torch.data.view_samplers",
+                     "spfsplatv2_tpu_torch.training.loop",
+                     "spfsplatv2_tpu_torch.training.validation",
+                     "spfsplatv2_tpu_torch.evaluation.pose_evaluator",
+                     "spfsplatv2_tpu_torch.utils.pnp",
+                     "spfsplatv2_tpu_torch.utils.yaml_lite"):
             assert name in sys.modules, name
         print("imported", len(sys.modules))
     """)

@@ -219,3 +219,70 @@ def random_flax_params(module, seed, *init_args):
         return np.asarray(x, np.float32)
 
     return jax.tree_util.tree_map_with_path(make, shapes)
+
+
+# ---- the command line: a tiny synthetic test split and its overrides ----
+
+CLI_INDEX = {
+    "scene_000": {"context": [0, 6], "target": [3, 4], "overlap": 0.2},
+    "scene_001": {"context": [2, 8], "target": [5], "overlap": 0.5},
+}
+
+
+def cli_test_split(root):
+    """Two 12-frame 32x32 synthetic scenes under `root/test` and their
+    evaluation index `root/index.json`."""
+    import json
+
+    from spfsplatv2_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    write_synthetic_dataset(root, 2, 12, (32, 32), "test")
+    (root / "index.json").write_text(json.dumps(CLI_INDEX))
+    return root
+
+
+def cli_overrides(root, out_dir, extra=()):
+    """Overrides of experiments/spfsplatv2/re10k.yaml for the tiny encoder
+    (float32 compute) at 32x32 on `root`'s synthetic data."""
+    ov = [f"dataset.roots=['{root}']", "dataset.original_image_shape=[32,32]",
+          "dataset.input_image_shape=[32,32]", "image_shape=[32,32]",
+          f"evaluation_sampler.index_path={root / 'index.json'}",
+          f"test.output_path={out_dir}", f"output_dir={out_dir}",
+          "checkpointing.pretrained_weights=null"]
+    for k, v in TINY_BACKBONE.items():
+        ov.append(f"encoder.spfsplatv2.backbone.{k}={v}")
+    for k, v in TINY_HEADS.items():
+        ov.append(f"encoder.spfsplatv2.{k}={list(v) if isinstance(v, tuple) else v}")
+    return ov + list(extra)
+
+
+def lpips_weights_file(path, seed=0):
+    """A seeded LPIPS in the `lpips.LPIPS(net="vgg")` state_dict layout,
+    saved with torch.save: both packages load it through
+    `loss.lpips_weights_path`."""
+    from spfsplatv2_tpu_torch.losses.lpips import _SLICE_CONVS, build_lpips
+
+    ours = build_lpips(seed, device="cpu").state_dict()
+    sd = {}
+    for s, idxs in _SLICE_CONVS.items():
+        for i, idx in enumerate(idxs):
+            for leaf in ("weight", "bias"):
+                sd[f"net.slice{s}.{idx}.{leaf}"] = ours[f"vgg.conv{s}_{i + 1}.{leaf}"]
+    for s in range(5):
+        sd[f"lin{s}.model.1.weight"] = ours[f"lin{s}"][None, :, None, None]
+    torch.save(sd, path)
+    return path
+
+
+def cli_checkpoints(params, tmp_path):
+    """The same flax params as a JAX orbax checkpoint and as the port's
+    checkpoint; -> (jax dir, port dir)."""
+    from spfsplatv2_tpu.training.loop import save_checkpoint
+
+    from spfsplatv2_tpu_torch.utils.from_flax import flax_to_state_dict
+
+    save_checkpoint(tmp_path / "jax_ckpt", {"params": params}, 0)
+    port = tmp_path / "port_ckpt" / "step_0"
+    port.mkdir(parents=True)
+    torch.save({"encoder": flax_to_state_dict(params)}, port / "state.pt")
+    return tmp_path / "jax_ckpt" / "step_0", port
