@@ -81,7 +81,25 @@ Phases, each printing JSON lines:
      from that checkpoint with images saved and seeded LPIPS, the five
      artifact files, the first saved PNG read back against its frame
      ("cli_test"); mode=eval_pose with the native PnP library built by
-     g++ ("cli_eval_pose"); then `build/cli/` is deleted.
+     g++ ("cli_eval_pose");
+ 19. the VGGT-1B family at full width: the encoder of
+     experiments/spfsplatv2-l/re10k.yaml (DINOv2 24x1024, 24 frame and
+     24 global blocks, camera head, point and GS heads: 1,190,626,953
+     parameters, bf16 aggregator) from a seeded random init (points and
+     cameras placed in front of each other, `place_vggt_scene`), serving 3
+     requests (2 context views + 1 target at 224^2) through
+     `evaluate_example`, launch counts read around exactly those
+     requests; the first request's render through K1 and K3 held against
+     their plain versions on the card ("vggt_serve");
+ 20. 2 train steps of `make_train_step` at the preset's b = 10 with the
+     microbatch `training/loop.py:fit_microbatch` picks (its probes'
+     peaks recorded), launch counts read around exactly those steps, the
+     steps' first K2 launch held against its plain version on the same
+     inputs and bins ("vggt_train");
+ 21. the command line on that preset: mode=train for 2 steps on phase
+     14's chunks (the memory guard, one validation, the 14 GB
+     checkpoint's seconds and bytes), then mode=test from that checkpoint
+     ("vggt_cli"); then `build/cli/` is deleted.
 Then the kernels line (each kernel's times, bound, launches on its path
 and check results), the card's name and power limit, and the result.
 
@@ -159,6 +177,12 @@ CLI_INDEX = {"scene_000": {"context": [0, 7], "target": [3, 4], "overlap": 0.3},
 CLI_STEPS, CLI_VAL_EVERY = 3, 2
 # Below phase 12's 33.8 GB peak at b = 16: the guard must halve.
 CLI_LOW_BUDGET_GB = 24.0
+# The VGGT-1B family (phases "vggt_*"): the encoder of this preset at full
+# width on seeded random weights, 2 context views + 1 target at its 224^2,
+# training at its batch of 10 with the microbatch the memory guard picks.
+VGGT_PRESET = "experiments/spfsplatv2-l/re10k.yaml"
+VGGT_PARAMS = 1_190_626_953
+VGGT_REQUESTS, VGGT_STEPS, VGGT_CLI_STEPS = 3, 2, 2
 
 
 def emit(obj: dict) -> None:
@@ -490,6 +514,432 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev) -> dict:
             "sdpa_backward_ms": sdpa_bwd}
 
 
+def run_train_step(torch, dev, state, step_fn, batch) -> dict:
+    """One train step, timed to its end on the card; checks that the loss
+    is finite and that parameters moved exactly when the update applied."""
+    encoder, optimizer = state.encoder, state.optimizer
+    snapshot = [p.detach().clone() for p in encoder.parameters()]
+    skipped = optimizer.skipped_count
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not all(v == v and abs(v) != float("inf")
+               for k, v in metrics.items() if k.startswith("loss/")):
+        fail(f"train step {state.step}: non-finite loss {metrics}")
+    moved = sum(not torch.equal(a, p) for a, p in
+                zip(snapshot, encoder.parameters()))
+    del snapshot
+    if optimizer.skipped_count > skipped:
+        branch = "skipped"
+        if moved:
+            fail(f"train step {state.step}: skipped, yet {moved} "
+                 "parameters changed")
+    else:
+        branch = "applied"
+        if not moved:
+            fail(f"train step {state.step}: applied, yet no parameter "
+                 "changed")
+    return {"step": state.step, "ms": ms, "branch": branch,
+            "params_changed": moved,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "metrics": metrics}
+
+
+def render_vs_plain(torch, decode, cams_args, gaussians, where: str) -> tuple:
+    """One render through K1 and K3 against the same render with both
+    dispatchers routed to their plain versions on the card (phase 4's
+    bars, depth's relative to its max), and K3 exact on each prefix sum's
+    real input; -> (each output's check, the prefix sums' n)."""
+    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda, raster_tiled
+    from spfsplatv2_tpu_torch.ops.segscan import cumsum_1d_cuda, cumsum_1d_plain
+
+    scans = []
+    with torch.no_grad():
+        kern = decode(gaussians, *cams_args)
+        cuda_lib.reset_launch_counts()
+        with plain_dispatch(raster_tiled, raster_cuda, cumsum_1d_plain, scans):
+            plain = decode(gaussians, *cams_args)
+    if cuda_lib.launch_counts["composite_forward"] or cuda_lib.launch_counts[
+            "cumsum_1d"] or not scans:
+        fail(f"{where} plain render: launches {dict(cuda_lib.launch_counts)}, "
+             f"{len(scans)} prefix sums")
+    depth_max = float(plain.depth.abs().max())
+    check = {}
+    for name, a, b, atol, hard in (
+            ("color", kern.color, plain.color, 3e-5, 5e-3),
+            ("depth", kern.depth, plain.depth, 6e-5 * depth_max,
+             4e-3 * depth_max),
+            ("alpha", kern.alpha, plain.alpha, 3e-5, 5e-3)):
+        diff = (a - b).abs()
+        frac_ok = float((diff <= atol).float().mean())
+        check[name] = {"max_abs_err": float(diff.max()),
+                       "frac_within": frac_ok, "atol": atol}
+        if not bool(torch.isfinite(a).all()) or float(diff.max()) > hard \
+                or frac_ok < 0.999:
+            fail(f"{where} render {name} vs plain: {check[name]}")
+    for x in scans:
+        if not torch.equal(cumsum_1d_cuda(x), cumsum_1d_plain(x)):
+            fail(f"K3 differs from torch.cumsum on the {where} binning's "
+                 f"input, n={x.shape[0]}")
+    return check, [x.shape[0] for x in scans]
+
+
+def conv_probe(torch, dev) -> dict:
+    """The VGGT DPT heads' `output_conv1` (float32, 256 -> 128 channels,
+    3x3, 128^2 maps at 224^2) alone through cuDNN and through PyTorch's
+    own im2col + GEMM (cuDNN off, as the heads run it), at 1, 2 and 10
+    maps (a request's and a microbatch's context views): ms and peak GB
+    above the inputs."""
+    import torch.nn.functional as F
+
+    from spfsplatv2_tpu_torch.models.vggt.dpt_head import without_cudnn
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = torch.randn(128, 256, 3, 3, generator=gen, device=dev) * 0.02
+    out = {}
+    for n in (1, 2, 10):
+        x = torch.randn(n, 256, 128, 128, generator=gen, device=dev)
+        conv = lambda: F.conv2d(x, w, padding=1)  # noqa: E731
+        for name, f in (("cudnn", conv),
+                        ("no_cudnn", lambda: without_cudnn(conv))):
+            f()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms = time_ms(torch, f, 3, warmup=0)
+            out[f"{name}_n{n}"] = {
+                "ms": ms,
+                "peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def place_vggt_scene(torch, encoder) -> None:
+    """Random weights place neither the points nor the cameras.  Put the
+    point head's points near z = 6.4 in front of view 0 (a z bias of 2
+    under the inverse-log output) and start the camera head near the
+    identity (its last layer shrunk to 0.1, a w bias of 0.25 for each of
+    its 4 iterations), as the CPU tests' random weights do."""
+    with torch.no_grad():
+        encoder.point_head.output_conv2_2.bias[2] += 2.0
+        fc2 = encoder.camera_head.pose_branch_fc2
+        fc2.weight.mul_(0.1)
+        fc2.bias[6] += 0.25
+
+
+def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
+    """The VGGT-1B family at full width, phases "vggt_serve" and
+    "vggt_train"; returns each path's launch counts and the K2 check."""
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.evaluation.benchmarker import Benchmarker
+    from spfsplatv2_tpu_torch.evaluation.evaluator import (
+        EvalConfig,
+        evaluate_example,
+    )
+    from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models import get_encoder
+    from spfsplatv2_tpu_torch.models.decoder import decode_splatting
+    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.training.optim import Optimizer
+    from spfsplatv2_tpu_torch.training.step import (
+        init_train_state,
+        make_train_step,
+    )
+
+    cfg = load_config([repo / VGGT_PRESET],
+                      ["checkpointing.pretrained_weights=null"])
+    hw = tuple(cfg.image_shape)
+    t0 = time.perf_counter()
+    encoder = get_encoder(cfg.encoder, seed=SEED, device=dev)
+    place_vggt_scene(torch, encoder)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in encoder.parameters())
+    if n_params != VGGT_PARAMS:
+        fail(f"the VGGT encoder has {n_params} parameters, not {VGGT_PARAMS}")
+    emit({"phase": "vggt_init", "preset": VGGT_PRESET, "params": n_params,
+          "seconds": time.perf_counter() - t0, "image_shape": list(hw),
+          "compute_dtype": cfg.encoder.spfsplatv2l.aggregator.compute_dtype})
+
+    # ---- 19. vggt_serve: evaluate_example, 3 requests ------------------
+    dec_cfg, eval_cfg = cfg.decoder, EvalConfig()
+    evaluate_example(encoder, request(-3, hw[0]), hw, dec_cfg, eval_cfg,
+                     device=dev)
+    requests = [request(20 + i, hw[0]) for i in range(VGGT_REQUESTS)]
+    results = []
+    # What the process holds before the requests (the encoder's weights
+    # and what earlier phases left), inside each request's peak.
+    resident = torch.cuda.memory_allocated(dev)
+    cuda_lib.reset_launch_counts()
+    for ex in requests:
+        bench = Benchmarker(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = evaluate_example(encoder, ex, hw, dec_cfg, eval_cfg,
+                               benchmarker=bench, device=dev)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["times"] = bench.summarize()
+        results.append(res)
+    serve_counts = dict(cuda_lib.launch_counts)
+    want = {k: 0 for k in serve_counts}
+    want.update(composite_forward=VGGT_REQUESTS, cumsum_1d=2 * VGGT_REQUESTS)
+    if serve_counts != want:
+        fail(f"vggt_serve launch counts {serve_counts}, expected {want}")
+    for i, res in enumerate(results):
+        vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"],
+                *res["pose_transl_err_deg"]]
+        if tuple(res["rendered"].shape) != (1, *hw, 3) or not bool(
+                torch.isfinite(res["rendered"]).all()) or not all(
+                v == v and abs(v) != float("inf") for v in vals):
+            fail(f"vggt request {i}: rendered {tuple(res['rendered'].shape)}, "
+                 f"metrics {vals}")
+    # The first request's render through K1 and K3 against their plain
+    # versions on the card, on the encoder's own Gaussians and pose.
+    c, t = requests[0]["context"], requests[0]["target"]
+    with torch.no_grad():
+        out = encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
+                      t["intrinsics"][None])
+    for key in ("pts3d", "pts3d_conf", "extrinsics_cwt", "depths"):
+        if not bool(torch.isfinite(out[key]).all()):
+            fail(f"vggt encoder output {key} is not finite")
+    cams_args = (out["extrinsics_cwt"][:, 2:], t["intrinsics"][None],
+                 t["near"][None], t["far"][None], hw, dec_cfg)
+    render_check, scan_ns = render_vs_plain(
+        torch, decode_splatting, cams_args, out["gaussians"], "vggt 224^2")
+    emit({"phase": "vggt_serve", "requests": VGGT_REQUESTS,
+          "launches": serve_counts,
+          "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3 for r in results],
+          "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3 for r in results],
+          "peak_bytes": [r["peak_bytes"] for r in results],
+          "resident_bytes": resident,
+          "psnr": [r["psnr"][0] for r in results],
+          "pose_rot_err_deg": [r["pose_rot_err_deg"][0] for r in results],
+          "dropped_entries": [r["dropped_entries"] for r in results],
+          "points_in_front": float((out["depths"] > 0).float().mean()),
+          "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
+          "conv_probe": conv_probe(torch, dev)})
+    del out, results
+    torch.cuda.empty_cache()
+
+    # ---- 20. vggt_train: make_train_step at b = 10 ---------------------
+    lpips = build_lpips(seed=SEED, device=dev)
+    encoder.train()
+    optimizer = Optimizer(cfg.optimizer, encoder.named_parameters())
+    state = init_train_state(encoder, optimizer)
+    batch_size = cfg.trainer.batch_size
+    batches = [train_batch(30 + i, batch_size, hw[0])
+               for i in range(VGGT_STEPS)]
+    loss_kwargs = dict(image_shape=hw, decoder_cfg=dec_cfg, loss_cfg=cfg.loss,
+                       lpips=lpips, training_context=cfg.train.training_context)
+    probes = []
+
+    def probe(mb):
+        probes.append({"microbatch": mb, "peak_gb": loop.probe_peak_gb(
+            state, batches[0], mb, loss_kwargs)})
+        return probes[-1]["peak_gb"]
+
+    budget_gb = loop.device_memory_gb(dev)
+    t0 = time.perf_counter()
+    microbatch, guard_peak = loop.fit_microbatch(probe, batch_size, None,
+                                                 budget_gb)
+    guard_s = time.perf_counter() - t0
+    microbatch = microbatch or batch_size
+    step_fn = make_train_step(encoder, optimizer, hw, dec_cfg, cfg.loss, lpips,
+                              training_context=cfg.train.training_context,
+                              microbatch=microbatch)
+    # K2's inputs and rows at the steps' first launch, and that camera's
+    # bins, recorded on the way through (the counts stay the wrapper's).
+    k2_calls, k2_bins = [], []
+    k2_inner, acc_inner = raster_cuda.composite_backward, raster_cuda.accumulate_rows
+
+    def capture_k2(*args):
+        rows = k2_inner(*args)
+        if not k2_calls:
+            k2_calls.append((args, rows))
+        return rows
+
+    def capture_bins(drows, bins, n_gauss):
+        if not k2_bins:
+            k2_bins.append((bins, n_gauss))
+        return acc_inner(drows, bins, n_gauss)
+
+    raster_cuda.composite_backward = capture_k2
+    raster_cuda.accumulate_rows = capture_bins
+    cuda_lib.reset_launch_counts()
+    try:
+        steps = [run_train_step(torch, dev, state, step_fn, b) for b in batches]
+    finally:
+        raster_cuda.composite_backward = k2_inner
+        raster_cuda.accumulate_rows = acc_inner
+    train_counts = dict(cuda_lib.launch_counts)
+    cams = VGGT_STEPS * batch_size
+    want = {k: 0 for k in train_counts}
+    want.update(composite_forward=cams, composite_backward=cams,
+                cumsum_1d=2 * cams)
+    if train_counts != want:
+        fail(f"vggt_train launch counts {train_counts}, expected {want}")
+    # That launch's rows against K2's plain version on the same inputs.
+    (args, rows_k), (bins, g) = k2_calls[0], k2_bins[0]
+    with torch.no_grad():
+        rows_p = raster_cuda.composite_backward_plain(*args)
+    k2_check = check_k2_rows(raster_cuda.accumulate_rows, rows_k, rows_p, bins,
+                             g, "vggt train step")
+    for st in steps:
+        emit({"phase": "vggt_train_step", "batch": batch_size,
+              "microbatch": microbatch, **st})
+    emit({"phase": "vggt_train", "batch": batch_size, "microbatch": microbatch,
+          "guard": {"peak_gb": guard_peak, "budget_gb": budget_gb,
+                    "probes": probes, "seconds": guard_s},
+          "steps": len(steps), "launches": train_counts,
+          "step_ms": [st["ms"] for st in steps],
+          "peak_bytes": max(st["peak_bytes"] for st in steps),
+          "branches": [st["branch"] for st in steps],
+          "k2_vs_plain": k2_check, "e_pad": bins.e_pad, "g": g})
+    del k2_calls, k2_bins, args, rows_k, rows_p, bins
+    return {"serve": serve_counts, "train": train_counts,
+            "render_check": render_check, "scan_ns": scan_ns,
+            "k2_check": k2_check}
+
+
+def vggt_cli_phase(torch, repo: Path, dev) -> dict:
+    """Phase "vggt_cli": the command line on the VGGT preset, mode=train
+    for 2 steps on phase 14's synthetic chunks (360x640, which the preset
+    resizes to 224^2), then mode=test from the saved checkpoint; returns
+    each call's kernel launch counts."""
+    import numpy as np
+
+    from spfsplatv2_tpu_torch import main as cli
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.training import loop
+
+    root = repo / "build" / "cli"
+    out_dir, test_dir = root / "vggt_out", root / "vggt_test_out"
+    overrides = [f"dataset.roots=[{root}]", f"trainer.max_steps={VGGT_CLI_STEPS}",
+                 "trainer.val_check_interval=1",
+                 "checkpointing.pretrained_weights=null",
+                 f"output_dir={out_dir}", "checkpointing.every_n_train_steps=0",
+                 "train.print_log_every_n_steps=1",
+                 f"evaluation_sampler.index_path={root / 'index.json'}",
+                 f"test.output_path={test_dir}", "test.save_image=false"]
+    argv = ["--config", str(repo / VGGT_PRESET), *overrides]
+    batch = load_config([repo / VGGT_PRESET], overrides).trainer.batch_size
+    logged, guards, saves, step_counts = {}, [], [], []
+    real = {k: getattr(loop, k) for k in ("make_train_step", "run_training",
+                                          "save_checkpoint")}
+
+    def make_train_step(*args, **kwargs):
+        step = real["make_train_step"](*args, **kwargs)
+
+        def counted(state, batch_):
+            before = dict(cuda_lib.launch_counts)
+            out = step(state, batch_)
+            step_counts.append({k: v - before[k]
+                                for k, v in cuda_lib.launch_counts.items()})
+            return out
+
+        return counted
+
+    def run_training(cfg_, log_fn=None, **kwargs):
+        def log(step, metrics):
+            logged.setdefault(step, {}).update(metrics)
+            log_fn(step, metrics)
+
+        result = real["run_training"](cfg_, log_fn=log, **kwargs)
+        guards.append(result["guard"])
+        return result
+
+    def save_checkpoint(ckpt_dir, state, step):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        path = real["save_checkpoint"](ckpt_dir, state, step)
+        saves.append({"step": step, "seconds": time.perf_counter() - t,
+                      "bytes": path.stat().st_size})
+        return path
+
+    for name, fn in (("make_train_step", make_train_step),
+                     ("run_training", run_training),
+                     ("save_checkpoint", save_checkpoint)):
+        setattr(loop, name, fn)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+    finally:
+        for name, fn in real.items():
+            setattr(loop, name, fn)
+    train_s = time.perf_counter() - t0
+    train_counts = dict(cuda_lib.launch_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [m["loss/total"] for s, m in sorted(logged.items())
+              if "loss/total" in m]
+    if rc != 0 or len(saves) != 1 or len(losses) != VGGT_CLI_STEPS \
+            or not all(np.isfinite(losses)):
+        fail(f"vggt_cli train: rc {rc}, {len(saves)} saves, losses {losses}")
+    (guard,) = guards
+    # Each step's own launches: one K1 and K2 and two K3 a camera (a
+    # probe that runs out of memory stops part way, so the totals, which
+    # add the guard's probes and the validation, are only reported).
+    want = {k: 0 for k in train_counts}
+    want.update(composite_forward=batch, composite_backward=batch,
+                cumsum_1d=2 * batch)
+    if step_counts != [want] * VGGT_CLI_STEPS:
+        fail(f"vggt_cli steps' launch counts {step_counts}, expected {want} "
+             f"each")
+    ckpt_path = out_dir / "checkpoints" / "step_-1"
+    head = loop.load_checkpoint(ckpt_path)
+    n_params = sum(t.numel() for t in head["encoder"].values())
+    if n_params != VGGT_PARAMS or head["step"] != VGGT_CLI_STEPS:
+        fail(f"vggt_cli checkpoint: {n_params} parameters, step {head['step']}")
+    del head
+
+    load_s = []
+    real_load = cli._load_encoder
+
+    def load_encoder(cfg_, device):
+        t = time.perf_counter()
+        encoder = real_load(cfg_, device)
+        torch.cuda.synchronize(dev)
+        load_s.append(time.perf_counter() - t)
+        return encoder
+
+    cli._load_encoder = load_encoder
+    cuda_lib.reset_launch_counts()
+    try:
+        rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}"])
+    finally:
+        cli._load_encoder = real_load
+    test_counts = dict(cuda_lib.launch_counts)
+    targets = sum(len(e["target"]) for e in CLI_INDEX.values())
+    want = {k: 0 for k in test_counts}
+    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    scores = test_dir / "scores_all_avg.json"
+    if rc != 0 or test_counts != want or not scores.exists():
+        fail(f"vggt_cli test: rc {rc}, launches {test_counts} (expected "
+             f"{want})")
+    avg = json.loads(scores.read_text())
+    if not all(np.isfinite(v) for k, v in avg.items()
+               if isinstance(v, float)):
+        fail(f"vggt_cli test: non-finite scores {avg}")
+    emit({"phase": "vggt_cli", "preset": VGGT_PRESET, "overrides": overrides,
+          "params": n_params, "train_seconds": train_s,
+          "losses": losses, "guard": guard,
+          "val": {k: v for m in logged.values() for k, v in m.items()
+                  if k.startswith("val/")},
+          "train_launches": train_counts, "step_launches": step_counts,
+          "checkpoint_save": saves[0],
+          "checkpoint_load_s": load_s, "test_launches": test_counts,
+          "averages": avg,
+          "request_times": json.loads((test_dir / "benchmark.json").read_text()),
+          "peak_memory": json.loads((test_dir / "peak_memory.json").read_text())})
+    shutil.rmtree(out_dir)
+    return {"vggt_cli_train": train_counts, "vggt_cli_test": test_counts}
+
+
 def cli_phases(torch, repo: Path, dev) -> dict:
     """The command line in process, phases "cli_data", "cli_train",
     "cli_guard", "cli_test" and "cli_eval_pose"; returns each call's
@@ -696,7 +1146,8 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     emit({"phase": "cli_eval_pose", "summary": json.loads(pose_file.read_text()),
           "pnp_library": str(pnp.native_library().path.relative_to(repo)),
           "pnp_build_seconds": pnp.native_library().build_seconds})
-    shutil.rmtree(root)
+    # The synthetic chunks stay for phase "vggt_cli"; the checkpoints go.
+    shutil.rmtree(out_dir)
     return {"cli_train_3_steps": train_counts, "cli_guard": guard_counts,
             "cli_test": test_counts, "cli_eval_pose": pose_counts}
 
@@ -722,7 +1173,7 @@ def main() -> int:
     )
     from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
-    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda, raster_tiled
+    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
     from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
     from spfsplatv2_tpu_torch.ops.raster_cuda import (
         accumulate_rows,
@@ -1215,36 +1666,8 @@ def main() -> int:
     pose = long_out["extrinsics_cwt"][:, 2:]
     cams_args = (pose, t["intrinsics"][None], t["near"][None],
                  t["far"][None], long_size, long_dec)
-    scans = []
-    with torch.no_grad():
-        kern = decode_splatting(long_out["gaussians"], *cams_args)
-        cuda_lib.reset_launch_counts()
-        with plain_dispatch(raster_tiled, raster_cuda, cumsum_1d_plain, scans):
-            plain = decode_splatting(long_out["gaussians"], *cams_args)
-    if cuda_lib.launch_counts["composite_forward"] or cuda_lib.launch_counts[
-            "cumsum_1d"] or not scans:
-        fail(f"1024^2 plain render: launches {dict(cuda_lib.launch_counts)}, "
-             f"{len(scans)} prefix sums")
-    depth_max = float(plain.depth.abs().max())
-    render_check = {}
-    for name, a, b, atol, hard in (
-            ("color", kern.color, plain.color, 3e-5, 5e-3),
-            ("depth", kern.depth, plain.depth, 6e-5 * depth_max,
-             4e-3 * depth_max),
-            ("alpha", kern.alpha, plain.alpha, 3e-5, 5e-3)):
-        diff = (a - b).abs()
-        frac_ok = float((diff <= atol).float().mean())
-        render_check[name] = {"max_abs_err": float(diff.max()),
-                              "frac_within": frac_ok, "atol": atol}
-        if not bool(torch.isfinite(a).all()) or float(diff.max()) > hard \
-                or frac_ok < 0.999:
-            fail(f"1024^2 render {name} vs plain: {render_check[name]}")
-    for x in scans:
-        if not torch.equal(cumsum_1d_cuda(x), cumsum_1d_plain(x)):
-            fail(f"K3 differs from torch.cumsum on the 1024^2 binning's "
-                 f"input, n={x.shape[0]}")
-    scan_ns = [x.shape[0] for x in scans]
-    del kern, plain, scans
+    render_check, scan_ns = render_vs_plain(
+        torch, decode_splatting, cams_args, long_out["gaussians"], "1024^2")
     # K2 on that camera's projection and bins, with seeded cotangents.
     g_long = long_out["gaussians"].means.shape[1]
     inv_near = 1.0 / t["near"][0]
@@ -1318,33 +1741,7 @@ def main() -> int:
         return {"context": side(2, [0.0, 0.2]), "target": side(1, [0.1])}
 
     def run_step(batch, step_fn=train_step) -> dict:
-        snapshot = [p.detach().clone() for p in encoder.parameters()]
-        skipped = optimizer.skipped_count
-        torch.cuda.reset_peak_memory_stats(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, metrics = step_fn(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        if not all(v == v and abs(v) != float("inf")
-                   for k, v in metrics.items() if k.startswith("loss/")):
-            fail(f"train step {state.step}: non-finite loss {metrics}")
-        moved = sum(not torch.equal(a, p) for a, p in
-                    zip(snapshot, encoder.parameters()))
-        if optimizer.skipped_count > skipped:
-            branch = "skipped"
-            if moved:
-                fail(f"train step {state.step}: skipped, yet {moved} "
-                     "parameters changed")
-        else:
-            branch = "applied"
-            if not moved:
-                fail(f"train step {state.step}: applied, yet no parameter "
-                     "changed")
-        return {"step": state.step, "ms": ms, "branch": branch,
-                "params_changed": moved,
-                "peak_bytes": torch.cuda.max_memory_allocated(dev),
-                "metrics": metrics}
+        return run_train_step(torch, dev, state, step_fn, batch)
 
     batches = [train_batch(i) for i in range(4)]
     cuda_lib.reset_launch_counts()
@@ -1441,6 +1838,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_counts = cli_phases(torch, repo, dev)
 
+    # ---- 19-21. the VGGT-1B family -------------------------------------
+    vggt = vggt_phases(torch, repo, dev, request, train_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vggt_cli_counts = vggt_cli_phase(torch, repo, dev)
+    shutil.rmtree(repo / "build" / "cli")
+
     # ---- kernels line, card, result -----------------------------------
     # Launches: each kernel's count over its path: K1-K3 over the training
     # path's 3 steps, K4 over the segscan step, K5's forward over the 3
@@ -1451,7 +1855,9 @@ def main() -> int:
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
              "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
              "serving_1024_3_requests": long_counts,
-             "train_1024_2_steps": long_train_counts, **cli_counts}
+             "train_1024_2_steps": long_train_counts, **cli_counts,
+             "vggt_serve_3_requests": vggt["serve"],
+             "vggt_train_2_steps": vggt["train"], **vggt_cli_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -1468,7 +1874,10 @@ def main() -> int:
                    "vs_oracle_64px_max_abs_err": max(oracle.values()),
                    "render_1024_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
-                       for key, c in render_check.items()}}},
+                       for key, c in render_check.items()},
+                   "render_vggt_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in vggt["render_check"].items()}}},
         {"name": "composite_backward", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/composite_backward.cu",
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:295",
@@ -1478,7 +1887,8 @@ def main() -> int:
          "check": {"vs_plain_rows_over_1e-4_of_max":
                    k2_check["rows_over_1e-4_of_max"],
                    "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),
-                   "camera_1024_vs_plain": k2_long}},
+                   "camera_1024_vs_plain": k2_long,
+                   "vggt_train_step_vs_plain": vggt["k2_check"]}},
         {"name": "cumsum_1d", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:108",
@@ -1487,7 +1897,8 @@ def main() -> int:
          "check": {"int32_exact": all(c["int32_exact"] for c in checks),
                    "f32_max_abs_err": max(c["f32_max_abs_err"]
                                           for c in checks),
-                   "int32_exact_on_1024_binning_inputs_n": scan_ns}},
+                   "int32_exact_on_1024_binning_inputs_n": scan_ns,
+                   "int32_exact_on_vggt_binning_inputs_n": vggt["scan_ns"]}},
         {"name": "segmented_scan", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/segmented_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:32",

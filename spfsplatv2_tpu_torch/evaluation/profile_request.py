@@ -1,21 +1,26 @@
 """Profile one step of a full-width path on the card with torch.profiler.
 
     python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train] [256|1024]
+    python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train] 224 spfsplatv2l
 
-Builds the flagship encoder from a seeded random init (as chip_smoke.py
-does), runs the path once to warm up, then once under `torch.profiler`,
-and prints one JSON line: the wall time, the device's busy time and share
-(the sum of kernel times over the wall time; one stream, so kernels do
-not overlap), the number of kernel launches, and the kernels that took
-the most device time, and K5's flash-attention kernels apart.  The paths:
-  * serving: one request (2 context views + 1 target at 256^2);
+Builds the encoder (the flagship, or the one named by the third
+argument: "spfsplatv2l" is the VGGT-1B family at the
+experiments/spfsplatv2-l presets' widths) from a seeded random init (as
+chip_smoke.py does), runs the path once to warm up, then once under
+`torch.profiler`, and prints one JSON line: the wall time, the device's
+busy time and share (the sum of kernel times over the wall time; one
+stream, so kernels do not overlap), the number of kernel launches, the
+peak device memory, the kernels that took the most device time, and
+K5's flash-attention kernels apart.  The paths:
+  * serving: one request (2 context views + 1 target);
   * align: one request with test-time pose alignment, 10 steps;
-  * train: one `make_train_step` step at the flagship batch (b = 16,
-    seeded LPIPS, the re10k optimizer recipe).
-The second argument is the image size: 256 (default) or 1024, the
-long-context path, where every self-attention takes flash attention
-(K5), the binning takes the quantized depth key and a train step takes
-b = 2.
+  * train: one `make_train_step` step at the preset's batch (seeded
+    LPIPS, the re10k optimizer recipe).
+The second argument is the image size: 256 (default) or 1024 for the
+flagship, where at 1024 every self-attention takes flash attention (K5),
+the binning takes the quantized depth key and a train step takes b = 2;
+224 for the VGGT family (b = 10 in microbatches of 5, the memory
+guard's choice on the 80 GB card).
 """
 
 from __future__ import annotations
@@ -28,12 +33,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
+from spfsplatv2_tpu_torch.models import EncoderSelectorConfig, get_encoder
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, LONG_CONTEXT_DECODER
-from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
 
 ALIGN_STEPS = 10
-# Image size -> (decoder config, train batch).
-SIZES = {256: (DecoderConfig(), 16), 1024: (LONG_CONTEXT_DECODER, 2)}
+# Image size -> (decoder config, train batch, microbatch).
+SIZES = {224: (DecoderConfig(), 10, 5), 256: (DecoderConfig(), 16, None),
+         1024: (LONG_CONTEXT_DECODER, 2, None)}
 
 
 def _views(gen, b, offsets, hw, device) -> dict:
@@ -66,7 +72,7 @@ def synthetic_batch(seed: int, b: int, hw: int, device: torch.device) -> dict:
 
 
 def _runner(path: str, encoder, hw: int, seed: int, dev):
-    dec_cfg, train_batch = SIZES[hw]
+    dec_cfg, train_batch, microbatch = SIZES[hw]
     if path == "serving":
         request = synthetic_request(seed + 1, hw, dev)
         return lambda: evaluate_example(encoder, request, (hw, hw), dec_cfg,
@@ -88,18 +94,21 @@ def _runner(path: str, encoder, hw: int, seed: int, dev):
         optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
         step = make_train_step(encoder, optimizer, (hw, hw), dec_cfg,
                                lpips=build_lpips(seed, dev),
-                               loss_cfg=LossConfig())
+                               loss_cfg=LossConfig(), microbatch=microbatch)
         state = init_train_state(encoder, optimizer)
         batch = synthetic_batch(seed + 1, train_batch, hw, dev)
         return lambda: step(state, batch)
     raise ValueError(f"unknown path {path!r}: serving, align or train")
 
 
-def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
+def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
+         seed: int = 0) -> dict:
     dev = torch.device("cuda")
-    encoder = build_encoder(SPFSplatV2Config(), seed=seed, device=dev)
+    encoder = get_encoder(EncoderSelectorConfig(name=encoder_name), seed=seed,
+                          device=dev)
     run = _runner(path, encoder, hw, seed, dev)
     run()
+    torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -118,7 +127,9 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
     result = {
         "path": path,
         "image_size": hw,
+        "encoder": encoder_name,
         "device": torch.cuda.get_device_name(0),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
         "wall_ms_under_profiler": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
@@ -131,4 +142,4 @@ def main(path: str = "serving", hw: int = 256, seed: int = 0) -> dict:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2], *map(int, sys.argv[2:3]))
+    main(*sys.argv[1:2], *map(int, sys.argv[2:3]), *sys.argv[3:4])

@@ -3,9 +3,9 @@
 
 `EncoderSelectorConfig` is the config-side selector (the YAML/CLI
 surface is `encoder.name=... encoder.<name>.<field>=...`) and
-`get_encoder` builds the chosen variant.  Only the flagship
-"spfsplatv2" is ported; "spfsplat" (v1) and "spfsplatv2l" (VGGT-1B)
-load their configs and raise when built.
+`get_encoder` builds the chosen variant: the flagship "spfsplatv2"
+(masked CroCo backbone) or "spfsplatv2l" (VGGT-1B).  "spfsplat" (v1)
+loads its config and raises when built.
 """
 
 from __future__ import annotations
@@ -14,16 +14,16 @@ from dataclasses import dataclass, field
 
 import torch
 
-from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
-from spfsplatv2_tpu_torch.models.variant_configs import (
-    SPFSplatConfig,
-    SPFSplatV2LConfig,
-)
+from spfsplatv2_tpu_torch.models import encoder, encoder_vggt
+from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
+from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LConfig
+from spfsplatv2_tpu_torch.models.variant_configs import SPFSplatConfig
 
 ENCODERS = ("spfsplat", "spfsplatv2", "spfsplatv2l")
+_BUILDERS = {"spfsplatv2": encoder.build_encoder,
+             "spfsplatv2l": encoder_vggt.build_encoder}
 _NOT_PORTED = {
     "spfsplat": "the SPFSplat v1 encoder is not ported (ROADMAP.md item 17)",
-    "spfsplatv2l": "the VGGT-1B encoder is not ported (ROADMAP.md item 16)",
 }
 
 
@@ -46,8 +46,8 @@ class EncoderSelectorConfig:
 def get_encoder(cfg: EncoderSelectorConfig, seed: int = 0,
                 device: str | torch.device = "cuda"):
     """Build the configured encoder on `device`, initialised from a
-    seeded generator (`models.encoder.build_encoder`)."""
+    seeded generator (each variant's `build_encoder`)."""
     variant = cfg.variant_cfg
     if cfg.name in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[cfg.name])
-    return build_encoder(variant, seed=seed, device=device)
+    return _BUILDERS[cfg.name](variant, seed=seed, device=device)

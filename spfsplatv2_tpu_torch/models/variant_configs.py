@@ -1,12 +1,9 @@
-"""Configs of the encoder variants that the port does not build yet
-(copies of the JAX package's plain config dataclasses), so that every
-preset under `experiments/` loads:
-  * `SPFSplatConfig` (the v1 encoder, `spfsplatv2_tpu/models/
-    encoder_spfsplat.py`) with `CrocoMultiBackboneConfig`;
-  * `SPFSplatV2LConfig` (the VGGT-1B encoder, `spfsplatv2_tpu/models/
-    encoder_vggt.py`) with `AggregatorConfig`, `DinoV2Config` and
-    `CameraHeadConfig`.
-Their modules are not ported (ROADMAP.md items 16 and 17).
+"""Config of the encoder variant that the port does not build yet (a
+copy of the JAX package's plain config dataclasses), so that every
+preset under `experiments/` loads: `SPFSplatConfig` (the v1 encoder,
+`spfsplatv2_tpu/models/encoder_spfsplat.py`) with
+`CrocoMultiBackboneConfig`.  Its modules are not ported (ROADMAP.md
+item 17).
 """
 
 from __future__ import annotations
@@ -58,56 +55,3 @@ class SPFSplatConfig:
     pose_make_relative: bool = True
     input_mean: float = 0.5
     input_std: float = 0.5
-
-
-@dataclass(frozen=True)
-class DinoV2Config:
-    patch_size: int = 14
-    embed_dim: int = 1024
-    depth: int = 24
-    num_heads: int = 16
-    mlp_ratio: float = 4.0
-    num_register_tokens: int = 4
-    native_grid: int = 37  # 518 / 14, the pretraining grid for pos embed
-    init_values: float = 1.0
-    compute_dtype: str = "bfloat16"
-
-
-@dataclass(frozen=True)
-class AggregatorConfig:
-    patch_size: int = 14
-    embed_dim: int = 1024
-    depth: int = 24
-    num_heads: int = 16
-    mlp_ratio: float = 4.0
-    num_register_tokens: int = 4
-    qk_norm: bool = True
-    rope_base: float = 100.0
-    init_values: float = 0.01
-    intrinsics_token: bool = True   # intrinsics_embed_loc='decoder'
-    dinov2: DinoV2Config = field(default_factory=DinoV2Config)
-    compute_dtype: str = "bfloat16"
-
-
-@dataclass(frozen=True)
-class CameraHeadConfig:
-    dim_in: int = 2048
-    trunk_depth: int = 4
-    num_heads: int = 16
-    mlp_ratio: float = 4.0
-    init_values: float = 0.01
-    num_iterations: int = 4
-    target_dim: int = 9
-
-
-@dataclass(frozen=True)
-class SPFSplatV2LConfig:
-    aggregator: AggregatorConfig = field(default_factory=AggregatorConfig)
-    camera_head: CameraHeadConfig = field(default_factory=CameraHeadConfig)
-    opacity_mapping: OpacityMappingConfig = field(
-        default_factory=OpacityMappingConfig
-    )
-    sh_degree: int = 4
-    estimating_pose: bool = True
-    pose_make_baseline_1: bool = False
-    pose_make_relative: bool = True

@@ -9,8 +9,9 @@ from torch (the port keeps its own copy of the rules):
                                     -> weight (in, out, kh, kw)
     (the same axis permutation as Conv: (3, 2, 0, 1))
   * LayerNorm scale                 -> weight
-  * `enc_blocks_{i}`, `dec_blocks_{i}`, `dec_blocks2_{i}` -> ModuleList
-    index `enc_blocks.{i}`, ...
+  * `enc_blocks_{i}`, `dec_blocks_{i}`, `dec_blocks2_{i}` (CroCo),
+    `blocks_{i}`, `frame_blocks_{i}`, `global_blocks_{i}`, `trunk_{i}`
+    (VGGT) -> ModuleList index `enc_blocks.{i}`, ...
 The port names its modules after the flax modules, so every other path
 component carries over as it is.
 """
@@ -23,7 +24,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_LIST = re.compile(r"^(enc_blocks|dec_blocks|dec_blocks2)_(\d+)$")
+_LIST = re.compile(r"^(enc_blocks|dec_blocks|dec_blocks2|blocks|frame_blocks|"
+                   r"global_blocks|trunk)_(\d+)$")
 
 
 def _module_key(name: str) -> str:

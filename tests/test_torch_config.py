@@ -5,6 +5,7 @@ Every preset under `experiments/` goes through the port's YAML reader
 packages' `load_config` with the same overrides (held as nested dicts).
 """
 
+import sys
 from pathlib import Path
 
 import pytest
@@ -15,6 +16,9 @@ from spfsplatv2_tpu.config import load_config as j_load_config
 from spfsplatv2_tpu_torch import config
 from spfsplatv2_tpu_torch.models import get_encoder
 from spfsplatv2_tpu_torch.utils import yaml_lite
+
+sys.path.insert(0, str(Path(__file__).parent))
+from torch_port_common import vggt_encoder_overrides  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PRESETS = sorted(str(p.relative_to(REPO))
@@ -112,6 +116,18 @@ def test_sampler_switches_to_evaluation_at_test(tmp_path):
 @pytest.mark.parametrize("name,item", [("spfsplat", "17"),
                                        ("spfsplatv2l", "16")])
 def test_unported_encoders_raise(name, item):
+    """v1 (ROADMAP.md item 17) raises, naming its item.  The VGGT-1B
+    encoder (item 16) is ported: the registry builds it from overrides
+    (the tiny sizes of tests/test_torch_vggt.py)."""
+    if name == "spfsplatv2l":
+        from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LEncoder
+
+        cfg = config.load_config(None, vggt_encoder_overrides())
+        encoder = get_encoder(cfg.encoder, device="cpu")
+        assert isinstance(encoder, SPFSplatV2LEncoder)
+        assert encoder.aggregator.cfg.dinov2.embed_dim == 32
+        assert len(encoder.aggregator.frame_blocks) == 2
+        return
     cfg = config.load_config(None, [f"encoder.name={name}"])
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         get_encoder(cfg.encoder, device="cpu")

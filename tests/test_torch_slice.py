@@ -49,12 +49,12 @@ def _pose(rng, angle=0.1, shift=0.3):
     return m
 
 
-def make_example(seed=0):
+def make_example(seed=0, hw=HW):
     rng = np.random.default_rng(seed)
     k = np.asarray([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], np.float32)
     f32 = lambda x: np.asarray(x, np.float32)
     view = lambda n: {
-        "image": f32(rng.uniform(0, 1, (n, *HW, 3))),
+        "image": f32(rng.uniform(0, 1, (n, *hw, 3))),
         "intrinsics": f32(np.repeat(k[None], n, 0)),
         "extrinsics": f32(np.stack([_pose(rng) for _ in range(n)])),
         "near": f32(np.full((n,), 1.0)),

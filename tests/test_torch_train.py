@@ -46,14 +46,14 @@ HW = (32, 32)
 GLOBAL_STEP = 1000
 
 
-def make_batch(seed, b=2, v_cxt=2, v_tgt=1):
+def make_batch(seed, b=2, v_cxt=2, v_tgt=1, hw=HW):
     rng = np.random.default_rng(seed)
     k = np.asarray([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], np.float32)
     f32 = lambda x: np.asarray(x, np.float32)
 
     def side(v):
         return {
-            "image": f32(rng.uniform(0, 1, (b, v, *HW, 3))),
+            "image": f32(rng.uniform(0, 1, (b, v, *hw, 3))),
             "intrinsics": f32(np.broadcast_to(k, (b, v, 3, 3))),
             "extrinsics": f32([[_pose(rng) for _ in range(v)] for _ in range(b)]),
             "near": f32(np.full((b, v), 1.0)),

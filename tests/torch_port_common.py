@@ -183,19 +183,86 @@ def torch_tiny_encoder(params):
     return enc.eval()
 
 
-def random_flax_params(module, seed, *init_args):
+# Tiny VGGT encoder (the JAX package's tests/test_vggt.py sizes): a DINOv2
+# of depth 1 and an aggregator of depth 2, width 32, 2 heads, float32
+# compute; a camera head of width 64 and trunk depth 1; SH degree 1.
+TINY_DINO = dict(patch_size=14, embed_dim=32, depth=1, num_heads=2,
+                 num_register_tokens=2, native_grid=4, compute_dtype="float32")
+TINY_AGG = dict(patch_size=14, embed_dim=32, depth=2, num_heads=2,
+                num_register_tokens=2, compute_dtype="float32")
+TINY_CAMERA = dict(dim_in=64, trunk_depth=1, num_heads=2)
+
+
+def jax_tiny_vggt(dtype="float32"):
+    from spfsplatv2_tpu.models.encoder_vggt import (
+        SPFSplatV2LConfig,
+        SPFSplatV2LEncoder,
+    )
+    from spfsplatv2_tpu.models.vggt.aggregator import AggregatorConfig
+    from spfsplatv2_tpu.models.vggt.camera_head import CameraHeadConfig
+    from spfsplatv2_tpu.models.vggt.dinov2 import DinoV2Config
+
+    dino = DinoV2Config(**{**TINY_DINO, "compute_dtype": dtype})
+    return SPFSplatV2LEncoder(SPFSplatV2LConfig(
+        aggregator=AggregatorConfig(**{**TINY_AGG, "compute_dtype": dtype},
+                                    dinov2=dino),
+        camera_head=CameraHeadConfig(**TINY_CAMERA), sh_degree=1))
+
+
+def torch_tiny_vggt_config(dtype="float32", **camera):
+    """The port's `SPFSplatV2LConfig` at the tiny sizes; `camera`
+    overrides camera-head fields."""
+    from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LConfig
+    from spfsplatv2_tpu_torch.models.vggt.aggregator import AggregatorConfig
+    from spfsplatv2_tpu_torch.models.vggt.camera_head import CameraHeadConfig
+    from spfsplatv2_tpu_torch.models.vggt.dinov2 import DinoV2Config
+
+    dino = DinoV2Config(**{**TINY_DINO, "compute_dtype": dtype})
+    return SPFSplatV2LConfig(
+        aggregator=AggregatorConfig(**{**TINY_AGG, "compute_dtype": dtype},
+                                    dinov2=dino),
+        camera_head=CameraHeadConfig(**{**TINY_CAMERA, **camera}),
+        sh_degree=1)
+
+
+def torch_tiny_vggt(params, dtype="float32"):
+    """The port's tiny VGGT encoder with weights moved from a flax tree."""
+    from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LEncoder
+    from spfsplatv2_tpu_torch.utils.from_flax import flax_to_state_dict
+
+    enc = SPFSplatV2LEncoder(torch_tiny_vggt_config(dtype))
+    enc.load_state_dict(flax_to_state_dict(params), strict=True)
+    return enc.eval()
+
+
+# Output layers that start small (the VGGT point head's output conv does
+# not: its world points spread from pixel to pixel only through the
+# kernel), and learned tokens drawn from N(0, 1).
+OUTPUT_LAYERS = ("head_out", "fc_rot", "fc_t", "gaussian_param_head/output_conv2_2",
+                 "pose_branch_fc2")
+TOKENS = ("pose_token", "camera_token", "register_token", "cls_token",
+          "register_tokens", "pos_embed", "empty_pose_tokens")
+
+
+def random_flax_params(module, seed, *init_args, **static):
     """A seeded param tree of `module`'s structure, made with numpy.
 
     The structure comes from `jax.eval_shape(module.init, ...)` (seconds,
     where an eager init takes about a minute).  Kernels are LeCun-scaled
-    normals; biases, LayerNorm affines and the pose token are random too,
-    so every weight of the layout is exercised.  The output layers keep
-    their calibrated scale (points start near z = 2.3, small Gaussians)
-    and the pose heads a near-identity rotation, so renders stay sane.
+    normals; biases, LayerNorm affines, LayerScales and the learned
+    tokens are random too, so every weight of the layout is exercised.
+    The output layers keep their calibrated scale (points start near
+    z = 2.3, small Gaussians) and the pose heads a near-identity rotation
+    (the VGGT camera head's xyzw quaternion leans to w), so renders stay
+    sane.  Keyword arguments reach `module.init` untraced (Python ints
+    and tuples that index or size arrays).
     """
+    import functools
+
     import jax
 
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
+    shapes = jax.eval_shape(functools.partial(module.init, **static),
+                            jax.random.PRNGKey(0), *init_args)
     rng = np.random.default_rng(seed)
 
     def make(path, leaf):
@@ -204,18 +271,26 @@ def random_flax_params(module, seed, *init_args):
         mod = names[-2] if len(names) > 1 else ""
         if name == "kernel":
             fan_in = int(np.prod(shape[:-1]))
-            scale = 0.1 if mod in ("head_out", "fc_rot", "fc_t") else 1.0
+            small = mod in OUTPUT_LAYERS or "/".join(names[-3:-1]) in OUTPUT_LAYERS
+            scale = 0.1 if small else 1.0
             x = rng.standard_normal(shape) * scale / np.sqrt(fan_in)
-        elif name == "scale":
+        elif name in ("scale", "gamma"):
             x = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif name == "pose_token":
+        elif name in TOKENS:
             x = rng.standard_normal(shape)
         else:  # biases
             x = 0.05 * rng.standard_normal(shape)
+            # The points' z: the CroCo head's 3 channels (near 2.3), the
+            # VGGT point head's 4 (xyz and confidence; its points spread
+            # more, so they start further, near 6.4, clear of near = 1).
             if mod == "head_out" and shape == (3,):
-                x = x + np.asarray([0.0, 0.0, 1.2])
+                x[2] += 1.2
+            if mod == "output_conv2_2" and shape == (4,):
+                x[2] += 2.0
             if mod == "fc_rot":
                 x = x + np.asarray([1.0, 0, 0, 0, 1.0, 0])
+            if mod == "pose_branch_fc2":
+                x[6] += 1.0
         return np.asarray(x, np.float32)
 
     return jax.tree_util.tree_map_with_path(make, shapes)
@@ -241,19 +316,43 @@ def cli_test_split(root):
     return root
 
 
+def _cli_data_overrides(root, out_dir, side):
+    """`root`'s 32x32 synthetic data at `side` x `side`, outputs under
+    `out_dir`, no pretrained weights."""
+    return [f"dataset.roots=['{root}']", "dataset.original_image_shape=[32,32]",
+            f"dataset.input_image_shape=[{side},{side}]",
+            f"image_shape=[{side},{side}]",
+            f"evaluation_sampler.index_path={root / 'index.json'}",
+            f"test.output_path={out_dir}", f"output_dir={out_dir}",
+            "checkpointing.pretrained_weights=null"]
+
+
 def cli_overrides(root, out_dir, extra=()):
     """Overrides of experiments/spfsplatv2/re10k.yaml for the tiny encoder
     (float32 compute) at 32x32 on `root`'s synthetic data."""
-    ov = [f"dataset.roots=['{root}']", "dataset.original_image_shape=[32,32]",
-          "dataset.input_image_shape=[32,32]", "image_shape=[32,32]",
-          f"evaluation_sampler.index_path={root / 'index.json'}",
-          f"test.output_path={out_dir}", f"output_dir={out_dir}",
-          "checkpointing.pretrained_weights=null"]
+    ov = _cli_data_overrides(root, out_dir, 32)
     for k, v in TINY_BACKBONE.items():
         ov.append(f"encoder.spfsplatv2.backbone.{k}={v}")
     for k, v in TINY_HEADS.items():
         ov.append(f"encoder.spfsplatv2.{k}={list(v) if isinstance(v, tuple) else v}")
     return ov + list(extra)
+
+
+def vggt_encoder_overrides():
+    """`encoder.name=spfsplatv2l` at the tiny VGGT sizes."""
+    ov = ["encoder.name=spfsplatv2l", "encoder.spfsplatv2l.sh_degree=1"]
+    for part, sizes in (("aggregator", TINY_AGG),
+                        ("aggregator.dinov2", TINY_DINO),
+                        ("camera_head", TINY_CAMERA)):
+        ov += [f"encoder.spfsplatv2l.{part}.{k}={v}" for k, v in sizes.items()]
+    return ov
+
+
+def vggt_cli_overrides(root, out_dir, extra=()):
+    """Overrides of experiments/spfsplatv2-l/re10k.yaml for the tiny VGGT
+    encoder at 28x28 (2 x 2 patches) on `root`'s synthetic data."""
+    return (_cli_data_overrides(root, out_dir, 28) + vggt_encoder_overrides()
+            + list(extra))
 
 
 def lpips_weights_file(path, seed=0):
