@@ -9,8 +9,8 @@ toolkit:
 Phases, each printing JSON lines:
   1. environment: torch, the card, its power limit, the TF32 settings,
      whether `yaml` and `PIL` import and where `g++` is;
-  2. build: every kernel (K1-K5), compiled from `csrc/` with one `nvcc`
-     per source, all started together;
+  2. build: every kernel (K1-K5, K5 in bf16 and float32), compiled from
+     `csrc/` with one `nvcc` per source, all started together;
   3. K3 (`cumsum_1d`, csrc/prefix_scan.cu) against its plain version
      (int32 exact) at the main path's n, a ragged n and the 1024^2
      path's n, timed beside `torch.cumsum`: back-to-back calls (CUDA
@@ -56,6 +56,11 @@ Phases, each printing JSON lines:
      versions on the card, K3 on each of the binning's real inputs, and
      K2 on that camera's bins against its plain version; K1 and K2 timed
      on those bins beside their bounds;
+     "conv_probe": every float32 3x3 or 7x7 convolution of the flagship's
+     DPT heads (`head_conv1` 256 -> 128 on the core's maps, `head_conv2`
+     128 -> 128, the GS head's `input_merger` 3 -> 256 7x7 and
+     `head_conv` 256 -> 256 at full resolution) alone through cuDNN and
+     off it, at 1, 2 and 16 maps at 256^2 and 1 and 2 maps at 1024^2;
  12. the training path: 3 steps of `make_train_step` on the full-width
      encoder (remat on, seeded LPIPS, the re10k optimizer recipe) at the
      flagship batch, b = 16 of 2 context + 1 target at 256^2, with the
@@ -68,6 +73,24 @@ Phases, each printing JSON lines:
      backward kernels; then K5's backward pair at each of those shapes
      (phase "K5_train"): the first batch element held against the plain
      versions, both kernels timed beside SDPA's backward;
+     then the float32 long-context path, the same encoder with
+     `CrocoBackboneConfig(compute_dtype="float32")` (the same seeded
+     weights): "K5_f32", K5's float32 kernels (csrc/flash_f32_forward.cu,
+     flash_f32_backward_dkv.cu, flash_f32_backward_dq.cu) at phase 10's
+     three shapes on seeded float32 inputs, O and lse within 2e-5 and dQ,
+     dK, dV within 1e-4 of max against their plain versions, the autograd
+     function against the dense form, timed beside their plain versions
+     and SDPA in float32 with their TFLOP/s beside the FP32 bound;
+     "serving_1024_f32", 3 requests at 1024^2 through `evaluate_example`
+     (48 float32 forward launches each, no bf16 K5 launch), encoder block
+     12's real q, k, v through the float32 kernel against the plain
+     version and the first request's render through K1 and K3 against
+     their plain versions on the card; "train_1024_f32", 2 steps at b = 2
+     with the microbatch `training/loop.py:fit_microbatch` picks (its
+     probes' peaks recorded), launch counts read around exactly those
+     steps, their first K2 launch held against its plain version; then
+     "K5_f32_train", the float32 backward pair at the shapes those steps
+     gave it;
  14. the command line, `spfsplatv2_tpu_torch.main.main([...])` in process
      with `--config experiments/spfsplatv2/re10k.yaml` and overrides only
      (phases "cli_*"): synthetic train, val and test chunks written under
@@ -100,8 +123,9 @@ Phases, each printing JSON lines:
      14's chunks (the memory guard, one validation, the 14 GB
      checkpoint's seconds and bytes), then mode=test from that checkpoint
      ("vggt_cli"); then `build/cli/` is deleted.
-Then the kernels line (each kernel's times, bound, launches on its path
-and check results), the card's name and power limit, and the result.
+Then the script's seconds so far (phase "done"), the kernels line (each
+kernel's times, bound, launches on its path and check results), the
+card's name and power limit, and the result.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -148,12 +172,14 @@ LONG_BATCH, LONG_MICROBATCH = 2, 2
 K5_SHAPES = {"encoder": (3, 16, 4096, 4096),
              "decoder_view0": (1, 12, 4098, 4098),
              "decoder_views12": (2, 12, 4098, 4098)}
-K5_TOL = 1e-2        # kernel vs plain: max |err| <= 1e-2 * max |plain|
-# The autograd function against autograd through the dense form in
-# float32 on the same bf16 inputs: the kernels round P and dS to bf16.
-K5_TOL_DENSE = 2e-2
-K5_FLOPS = {"flash_forward": 4, "flash_backward_dkv": 8,
-            "flash_backward_dq": 6}  # x b*h*n_q*n_k*64 on the tensor cores
+# Kernel against plain version, as fractions of max |plain|: (O, lse, dQ
+# / dK / dV, the autograd function against autograd through the float32
+# dense form).  bf16: the kernels round P and dS to bf16.  float32:
+# nothing is rounded, only the order of float32 sums differs.
+K5_TOLS = {"bfloat16": (1e-2, 1e-4, 1e-2, 2e-2),
+           "float32": (2e-5, 2e-5, 1e-4, 1e-4)}
+K5_FLOPS = {"forward": 4, "backward_dkv": 8,
+            "backward_dq": 6}  # x b*h*n_q*n_k*64
 # The forward's other bound: one ex2 per logit on the special-function
 # units, 16 a clock on each of the 132 SMs at 1.83 GHz (the FlashAttention-3
 # paper's 3.9 T/s for the H100 SXM).
@@ -183,6 +209,23 @@ CLI_LOW_BUDGET_GB = 24.0
 VGGT_PRESET = "experiments/spfsplatv2-l/re10k.yaml"
 VGGT_PARAMS = 1_190_626_953
 VGGT_REQUESTS, VGGT_STEPS, VGGT_CLI_STEPS = 3, 2, 2
+# The flagship at 1024^2 with compute_dtype="float32" (phases "K5_f32",
+# "serving_1024_f32", "train_1024_f32"): requests served; training at
+# LONG_BATCH with the microbatch the memory guard picks.
+F32_REQUESTS = 3
+# The float32 convolutions of 3x3 or wider in the DPT heads, for
+# "conv_probe": name -> (in, out, kernel side, {image side: map side}).
+# The VGGT heads' `output_conv1` at 224^2 (a request's and a microbatch's
+# context views: 1, 2 and 10 maps); the flagship heads' at 256^2 (a
+# request gives each head 1 map, the b = 16 step 16) and 1024^2.
+VGGT_CONVS = {"output_conv1": (256, 128, 3, {224: 128})}
+FLAGSHIP_CONVS = {
+    "DPTHead.head_conv1": (256, 128, 3, {256: 128, 1024: 512}),
+    "DPTHead.head_conv2": (128, 128, 3, {256: 256, 1024: 1024}),
+    "DPTGSHead.input_merger": (3, 256, 7, {256: 256, 1024: 1024}),
+    "DPTGSHead.head_conv": (256, 256, 3, {256: 256, 1024: 1024}),
+}
+FLAGSHIP_CONV_MAPS = {256: (1, 2, 16), 1024: (1, 2)}
 
 
 def emit(obj: dict) -> None:
@@ -364,58 +407,76 @@ def evaluated_pairs(torch, cull_box_plain, packed, bins) -> int:
     return 32 * hits
 
 
-def k5_inputs(torch, attention, shape: tuple, gen, dev) -> tuple:
-    """Seeded N(0, 1) bf16 q, k, v and cotangent dO at (b, h, n_q, n_k)
-    with head dim 64, K5's forward O and lse on them, and di = rowsum(dO
-    * O) as the autograd function computes it."""
+def k5_kernels(attention, dtype) -> dict:
+    """K5's kernel names for `dtype`, by role ("forward", "backward_dkv",
+    "backward_dq")."""
+    return dict(zip(K5_FLOPS, attention.FLASH_KERNELS[dtype]))
+
+
+def k5_bound_ms(torch, role: str, shape: tuple, dtype) -> float:
+    """A K5 kernel's least time at (b, h, n_q, n_k): its FLOPs on the bf16
+    tensor cores, or on the FP32 units for float32."""
+    b, h, n_q, n_k = shape
+    rate = H100_BF16_PER_S if dtype == torch.bfloat16 else H100_FP32_PER_S
+    return K5_FLOPS[role] * b * h * n_q * n_k * 64 / rate * 1e3
+
+
+def k5_inputs(torch, attention, shape: tuple, gen, dev, dtype) -> tuple:
+    """Seeded N(0, 1) q, k, v and cotangent dO of `dtype` at (b, h, n_q,
+    n_k) with head dim 64, K5's forward O and lse on them, and di =
+    rowsum(dO * O) as the autograd function computes it."""
     b, h, n_q, n_k = shape
 
     def make(n):
-        return torch.randn(b, h, n, 64, generator=gen, device=dev).to(
-            torch.bfloat16)
+        return torch.randn(b, h, n, 64, generator=gen, device=dev).to(dtype)
 
     q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
     o, lse = attention.flash_forward_cuda(q, k, v, 64**-0.5)
     return q, k, v, do, o, lse, (do.float() * o.float()).sum(-1)
 
 
-def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
-    """K5's three kernels against their plain versions, and the autograd
-    function against autograd through the float32 dense form, at one path shape
-    with seeded inputs and cotangent; then their times beside the plain
-    versions and SDPA's."""
+def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
+             dtype) -> dict:
+    """K5's three kernels of `dtype` against their plain versions, and the
+    autograd function against autograd through the float32 dense form,
+    at one path shape with seeded inputs and cotangent; then their times
+    beside the plain versions and SDPA's in the same dtype."""
     import torch.nn.functional as F
 
     b, h, n_q, n_k = shape
     scale = 64**-0.5
-    q, k, v, do, o, lse, di = k5_inputs(torch, attention, shape, gen, dev)
+    o_tol, lse_tol, grad_tol, dense_tol = K5_TOLS[str(dtype).removeprefix("torch.")]
+    names = k5_kernels(attention, dtype)
+    q, k, v, do, o, lse, di = k5_inputs(torch, attention, shape, gen, dev,
+                                        dtype)
     dk, dv = attention.flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
     dq = attention.flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
     torch.cuda.synchronize()
     o_p, lse_p = attention.flash_forward_plain(q, k, v, scale)
     dk_p, dv_p = attention.flash_backward_dkv_plain(q, k, v, do, lse, di, scale)
     dq_p = attention.flash_backward_dq_plain(q, k, v, do, lse, di, scale)
-    checks = {"o": max_err(o, o_p), "dq": max_err(dq, dq_p),
-              "dk": max_err(dk, dk_p), "dv": max_err(dv, dv_p)}
+    checks = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p),
+              "dq": max_err(dq, dq_p), "dk": max_err(dk, dk_p),
+              "dv": max_err(dv, dv_p)}
+    del o_p, lse_p, dk_p, dv_p, dq_p
     for key, c in checks.items():
-        if not c["max_abs_err"] <= K5_TOL * c["ref_max_abs"]:
-            fail(f"K5 {name} {key} vs plain: {c}")
-    checks["lse"] = max_err(lse, lse_p)
-    if not checks["lse"]["max_abs_err"] <= 1e-4 * checks["lse"]["ref_max_abs"]:
-        fail(f"K5 {name} lse vs plain: {checks['lse']}")
+        tol = {"o": o_tol, "lse": lse_tol}.get(key, grad_tol)
+        if not c["max_abs_err"] <= tol * c["ref_max_abs"]:
+            fail(f"K5 {dtype} {name} {key} vs plain: {c} (bar {tol} x max)")
 
-    def grads(fn, dtype):
-        leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    def grads(fn, leaf_dtype):
+        leaves = [t.to(leaf_dtype).requires_grad_() for t in (q, k, v)]
         out = fn(*leaves, scale)
-        return out, torch.autograd.grad(out, leaves, do.to(dtype))
+        return out, torch.autograd.grad(out, leaves, do.to(leaf_dtype))
 
-    out_k, g_k = grads(attention.flash_attention, torch.bfloat16)
+    out_k, g_k = grads(attention.flash_attention, dtype)
     out_d, g_d = grads(attention._dense, torch.float32)
     dense = {key: max_err(a, ref) for key, a, ref in
              zip(("o", "dq", "dk", "dv"), (out_k, *g_k), (out_d, *g_d))}
     for key, c in dense.items():
-        if not c["max_abs_err"] <= K5_TOL_DENSE * c["ref_max_abs"]:
-            fail(f"K5 {name} autograd {key} vs the float32 dense form: {c}")
+        if not c["max_abs_err"] <= dense_tol * c["ref_max_abs"]:
+            fail(f"K5 {dtype} {name} autograd {key} vs the float32 dense "
+                 f"form: {c}")
     del out_k, g_k, out_d, g_d
 
     bwd_args = (q, k, v, do, lse, di, scale)
@@ -427,22 +488,23 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
     sdpa = lambda q_, k_, v_, s: F.scaled_dot_product_attention(  # noqa: E731
         q_, k_, v_, scale=s)
     sdpa_out = sdpa(*leaves, scale)
+    iters = 20 if dtype == torch.bfloat16 else 5
     times = {
-        "flash_forward": {
+        "forward": {
             "ms": time_ms(torch, lambda: attention.flash_forward_cuda(
-                q, k, v, scale), 20),
+                q, k, v, scale), iters),
             "plain_ms": time_ms(torch, lambda: attention.flash_forward_plain(
                 q, k, v, scale), 3, warmup=1),
-            "library_ms": time_ms(torch, lambda: sdpa(q, k, v, scale), 20)},
-        "flash_backward_dkv": {
+            "library_ms": time_ms(torch, lambda: sdpa(q, k, v, scale), iters)},
+        "backward_dkv": {
             "ms": time_ms(torch, lambda: attention.flash_backward_dkv_cuda(
-                *bwd_args), 10),
+                *bwd_args), iters // 2),
             "plain_ms": time_ms(torch, lambda: attention.
                                 flash_backward_dkv_plain(*bwd_args), 3,
                                 warmup=1)},
-        "flash_backward_dq": {
+        "backward_dq": {
             "ms": time_ms(torch, lambda: attention.flash_backward_dq_cuda(
-                *bwd_args), 10),
+                *bwd_args), iters // 2),
             "plain_ms": time_ms(torch, lambda: attention.
                                 flash_backward_dq_plain(*bwd_args), 3,
                                 warmup=1)},
@@ -450,39 +512,43 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev) -> dict:
     # SDPA's backward gives dQ, dK and dV in one call: it stands beside
     # both backward kernels.
     sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, leaves, do, retain_graph=True), 10)
-    for key in ("flash_backward_dkv", "flash_backward_dq"):
-        times[key]["library_ms"] = sdpa_bwd
-    for key, t in times.items():
-        flops = K5_FLOPS[key] * b * h * n_q * n_k * 64
-        t["bound_ms"] = flops / H100_BF16_PER_S * 1e3
+        sdpa_out, leaves, do, retain_graph=True), iters // 2)
+    for role in ("backward_dkv", "backward_dq"):
+        times[role]["library_ms"] = sdpa_bwd
+    for role, t in times.items():
+        t["bound_ms"] = k5_bound_ms(torch, role, shape, dtype)
         t["bound_by"] = "operations"
-        t["tflops"] = flops / t["ms"] / 1e9
-    times["flash_forward"]["ex2_bound_ms"] = (b * h * n_q * n_k
-                                              / H100_EX2_PER_S * 1e3)
-    times["flash_forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
-    times["flash_backward_dkv"]["max_abs_err"] = max(
+        t["tflops"] = K5_FLOPS[role] * b * h * n_q * n_k * 64 / t["ms"] / 1e9
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+    times["forward"]["ex2_bound_ms"] = b * h * n_q * n_k / H100_EX2_PER_S * 1e3
+    times["forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
+    times["backward_dkv"]["max_abs_err"] = max(
         checks["dk"]["max_abs_err"], checks["dv"]["max_abs_err"])
-    times["flash_backward_dq"]["max_abs_err"] = checks["dq"]["max_abs_err"]
+    times["backward_dq"]["max_abs_err"] = checks["dq"]["max_abs_err"]
+    fb_iters = 5 if dtype == torch.bfloat16 else 3
     fwd_bwd_ms = {
-        "kernels": time_ms(torch, fwd_bwd(attention.flash_attention), 5),
+        "kernels": time_ms(torch, fwd_bwd(attention.flash_attention), fb_iters),
         "plain": time_ms(torch, fwd_bwd(attention._dense), 3, warmup=1),
-        "sdpa": time_ms(torch, fwd_bwd(sdpa), 5)}
-    return {"shape": list(shape), "vs_plain": checks,
+        "sdpa": time_ms(torch, fwd_bwd(sdpa), fb_iters)}
+    return {"shape": list(shape), "dtype": str(dtype), "vs_plain": checks,
             "vs_dense_f32_autograd": dense,
-            "kernels": times, "fwd_bwd_ms": fwd_bwd_ms}
+            "kernels": {names[role]: t for role, t in times.items()},
+            "fwd_bwd_ms": fwd_bwd_ms}
 
 
-def k5_train_shape(torch, attention, shape: tuple, gen, dev) -> dict:
-    """K5's backward pair at one shape that a 1024^2 train step's autograd
-    gave it, on seeded inputs: the first batch element held against the
-    plain versions (the whole batch's float32 logits would take tens of
-    GB), both kernels timed beside SDPA's backward."""
+def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
+    """K5's backward pair of `dtype` at one shape that a 1024^2 train
+    step's autograd gave it, on seeded inputs: the first batch element
+    held against the plain versions (the whole batch's float32 logits
+    would take tens of GB), both kernels timed beside SDPA's backward."""
     import torch.nn.functional as F
 
     b, h, n_q, n_k = shape
     scale = 64**-0.5
-    q, k, v, do, _, lse, di = k5_inputs(torch, attention, shape, gen, dev)
+    grad_tol = K5_TOLS[str(dtype).removeprefix("torch.")][2]
+    names = k5_kernels(attention, dtype)
+    q, k, v, do, _, lse, di = k5_inputs(torch, attention, shape, gen, dev,
+                                        dtype)
     args = (q, k, v, do, lse, di, scale)
     dk, dv = attention.flash_backward_dkv_cuda(*args)
     dq = attention.flash_backward_dq_cuda(*args)
@@ -493,23 +559,24 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev) -> dict:
     checks = {"dq": max_err(dq[:1], dq_p), "dk": max_err(dk[:1], dk_p),
               "dv": max_err(dv[:1], dv_p)}
     for key, c in checks.items():
-        if not c["max_abs_err"] <= K5_TOL * c["ref_max_abs"]:
-            fail(f"K5 {key} at train shape {shape} vs plain: {c}")
+        if not c["max_abs_err"] <= grad_tol * c["ref_max_abs"]:
+            fail(f"K5 {dtype} {key} at train shape {shape} vs plain: {c}")
     del dk, dv, dq, dk_p, dv_p, dq_p
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    iters = 10 if dtype == torch.bfloat16 else 3
     sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out, leaves, do, retain_graph=True), 10)
+        out, leaves, do, retain_graph=True), iters)
     kernels = {}
-    for name in ("flash_backward_dkv", "flash_backward_dq"):
-        fn = getattr(attention, f"{name}_cuda")
-        ms = time_ms(torch, lambda fn=fn: fn(*args), 10)
-        flops = K5_FLOPS[name] * b * h * n_q * n_k * 64
-        kernels[name] = {"ms": ms, "tflops": flops / ms / 1e9,
-                         "bound_ms": flops / H100_BF16_PER_S * 1e3,
-                         "bound_by": "operations", "library_ms": sdpa_bwd}
-    return {"shape": list(shape), "vs_plain_first_batch": checks,
-            "kernels": kernels,
+    for role in ("backward_dkv", "backward_dq"):
+        fn = getattr(attention, f"flash_{role}_cuda")
+        ms = time_ms(torch, lambda fn=fn: fn(*args), iters)
+        kernels[names[role]] = {
+            "ms": ms, "tflops": K5_FLOPS[role] * b * h * n_q * n_k * 64 / ms
+            / 1e9, "bound_ms": k5_bound_ms(torch, role, shape, dtype),
+            "bound_by": "operations", "library_ms": sdpa_bwd}
+    return {"shape": list(shape), "dtype": str(dtype),
+            "vs_plain_first_batch": checks, "kernels": kernels,
             "pair_ms": sum(t["ms"] for t in kernels.values()),
             "sdpa_backward_ms": sdpa_bwd}
 
@@ -587,35 +654,307 @@ def render_vs_plain(torch, decode, cams_args, gaussians, where: str) -> tuple:
     return check, [x.shape[0] for x in scans]
 
 
-def conv_probe(torch, dev) -> dict:
-    """The VGGT DPT heads' `output_conv1` (float32, 256 -> 128 channels,
-    3x3, 128^2 maps at 224^2) alone through cuDNN and through PyTorch's
-    own im2col + GEMM (cuDNN off, as the heads run it), at 1, 2 and 10
-    maps (a request's and a microbatch's context views): ms and peak GB
-    above the inputs."""
+def conv_probe(torch, dev, convs: dict, maps: dict) -> dict:
+    """Float32 convolutions alone (TF32 off) through cuDNN and through
+    PyTorch's own im2col + GEMM (cuDNN off, as `without_cudnn` runs
+    them).  `convs`: name -> (in channels, out channels, kernel side,
+    {image side: map side}); `maps`: image side -> the map counts to
+    probe.  Each gives the forward's ms and its peak GB above the inputs
+    (an out-of-memory error reads as infinite)."""
     import torch.nn.functional as F
 
-    from spfsplatv2_tpu_torch.models.vggt.dpt_head import without_cudnn
+    from spfsplatv2_tpu_torch.utils.cudnn import without_cudnn
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    w = torch.randn(128, 256, 3, 3, generator=gen, device=dev) * 0.02
     out = {}
-    for n in (1, 2, 10):
-        x = torch.randn(n, 256, 128, 128, generator=gen, device=dev)
-        conv = lambda: F.conv2d(x, w, padding=1)  # noqa: E731
-        for name, f in (("cudnn", conv),
-                        ("no_cudnn", lambda: without_cudnn(conv))):
-            f()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            base = torch.cuda.memory_allocated(dev)
-            ms = time_ms(torch, f, 3, warmup=0)
-            out[f"{name}_n{n}"] = {
-                "ms": ms,
-                "peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
-        del x
+    for name, (c_in, c_out, ksize, sides) in convs.items():
+        w = torch.randn(c_out, c_in, ksize, ksize, generator=gen,
+                        device=dev) * 0.02
+        for image, side in sides.items():
+            for n in maps[image]:
+                x = torch.randn(n, c_in, side, side, generator=gen, device=dev)
+                conv = lambda: F.conv2d(x, w, padding=ksize // 2)  # noqa: E731
+                row = {"maps": n, "map_side": side}
+                for how, f in (("cudnn", conv),
+                               ("no_cudnn", lambda: without_cudnn(conv))):
+                    try:
+                        f()
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        base = torch.cuda.memory_allocated(dev)
+                        row[f"{how}_ms"] = time_ms(torch, f, 3, warmup=0)
+                        row[f"{how}_peak_gb"] = (
+                            torch.cuda.max_memory_allocated(dev) - base) / 1e9
+                    except torch.cuda.OutOfMemoryError:
+                        row[f"{how}_ms"] = row[f"{how}_peak_gb"] = float("inf")
+                    torch.cuda.empty_cache()
+                out[f"{name}@{image}px_n{n}"] = row
+                del x
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def first_k2_launch(raster_cuda):
+    """Record K2's inputs and rows at its first launch, and that camera's
+    bins, on the way through (the launch counts stay the wrapper's);
+    yields a dict that holds "args", "rows", "bins" and "g" after it."""
+    seen = {}
+    k2_inner, acc_inner = (raster_cuda.composite_backward,
+                           raster_cuda.accumulate_rows)
+
+    def capture_k2(*args):
+        rows = k2_inner(*args)
+        seen.setdefault("args", args)
+        seen.setdefault("rows", rows)
+        return rows
+
+    def capture_bins(drows, bins, n_gauss):
+        seen.setdefault("bins", bins)
+        seen.setdefault("g", n_gauss)
+        return acc_inner(drows, bins, n_gauss)
+
+    raster_cuda.composite_backward = capture_k2
+    raster_cuda.accumulate_rows = capture_bins
+    try:
+        yield seen
+    finally:
+        raster_cuda.composite_backward = k2_inner
+        raster_cuda.accumulate_rows = acc_inner
+
+
+def check_first_k2(torch, raster_cuda, seen: dict, where: str) -> dict:
+    """The recorded first K2 launch's rows against K2's plain version on
+    the same inputs and bins."""
+    with torch.no_grad():
+        rows_p = raster_cuda.composite_backward_plain(*seen["args"])
+    return check_k2_rows(raster_cuda.accumulate_rows, seen["rows"], rows_p,
+                         seen["bins"], seen["g"], where)
+
+
+def encoder_pass_capturing_k5(torch, attention, encoder, ex) -> tuple:
+    """One encoder pass on request `ex` with every flash-branch call's q,
+    k, v and scale recorded; -> (the encoder's output, the calls)."""
+    captured = []
+    flash_inner = attention.flash_attention
+
+    def capture(q_, k_, v_, s_):
+        captured.append((q_.contiguous(), k_.contiguous(), v_.contiguous(), s_))
+        return flash_inner(q_, k_, v_, s_)
+
+    attention.flash_attention = capture
+    try:
+        with torch.no_grad():
+            c, t = ex["context"], ex["target"]
+            out = encoder(c["image"][None], c["intrinsics"][None],
+                          t["image"][None], t["intrinsics"][None])
+    finally:
+        attention.flash_attention = flash_inner
+    return out, captured
+
+
+def serve_requests(torch, dev, encoder, requests, size, dec_cfg, eval_cfg):
+    """`evaluate_example` on each request, with the kernels' launch counts
+    read around exactly those requests; -> (results with their times and
+    peak bytes, the counts)."""
+    from spfsplatv2_tpu_torch.evaluation.benchmarker import Benchmarker
+    from spfsplatv2_tpu_torch.evaluation.evaluator import evaluate_example
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+
+    results = []
+    cuda_lib.reset_launch_counts()
+    for ex in requests:
+        bench = Benchmarker(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = evaluate_example(encoder, ex, size, dec_cfg, eval_cfg,
+                               benchmarker=bench, device=dev)
+        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["times"] = bench.summarize()
+        results.append(res)
+    return results, dict(cuda_lib.launch_counts)
+
+
+def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
+    """The flagship at 1024^2 with compute_dtype="float32" (phases
+    "K5_f32", "serving_1024_f32", "train_1024_f32", "K5_f32_train");
+    returns each path's launch counts and the checks and times of K5's
+    float32 kernels."""
+    from spfsplatv2_tpu_torch.evaluation.evaluator import (
+        EvalConfig,
+        evaluate_example,
+    )
+    from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
+    from spfsplatv2_tpu_torch.models.decoder import (
+        LONG_CONTEXT_DECODER,
+        decode_splatting,
+    )
+    from spfsplatv2_tpu_torch.models.encoder import (
+        SPFSplatV2Config,
+        build_encoder,
+    )
+    from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
+    from spfsplatv2_tpu_torch.training.step import (
+        HBMBudgetError,
+        LossConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    # ---- K5_f32: the float32 kernels at the 1024^2 path's shapes --------
+    k5 = {}
+    for name, shape in K5_SHAPES.items():
+        k5[name] = k5_phase(torch, attention, name, shape, gen, dev,
+                            torch.float32)
+        emit({"phase": "K5_f32", "call": name, **k5[name]})
+    torch.cuda.empty_cache()
+
+    # ---- serving_1024_f32: evaluate_example, float32 compute ------------
+    size, dec_cfg, eval_cfg = (HW_LONG, HW_LONG), LONG_CONTEXT_DECODER, EvalConfig()
+    cfg = SPFSplatV2Config(backbone=CrocoBackboneConfig(compute_dtype="float32"))
+    t0 = time.perf_counter()
+    encoder = build_encoder(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    evaluate_example(encoder, request(-4, HW_LONG), size, dec_cfg, eval_cfg,
+                     device=dev)
+    requests = [request(40 + i, HW_LONG) for i in range(F32_REQUESTS)]
+    resident = torch.cuda.memory_allocated(dev)
+    results, serve_counts = serve_requests(torch, dev, encoder, requests, size,
+                                           dec_cfg, eval_cfg)
+    want = {k: 0 for k in serve_counts}
+    want.update(flash_f32_forward=K5_PER_PASS * F32_REQUESTS,
+                composite_forward=F32_REQUESTS, cumsum_1d=2 * F32_REQUESTS)
+    if serve_counts != want:
+        fail(f"serving_1024_f32 launch counts {serve_counts}, expected {want}")
+    for i, res in enumerate(results):
+        vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"]]
+        if tuple(res["rendered"].shape) != (1, *size, 3) or not bool(
+                torch.isfinite(res["rendered"]).all()) or not all(
+                v == v and abs(v) != float("inf") for v in vals):
+            fail(f"float32 1024^2 request {i}: rendered "
+                 f"{tuple(res['rendered'].shape)}, metrics {vals}")
+    # Encoder block 12's real q, k, v through the float32 kernel against
+    # the plain version, then the first request's render through K1 and
+    # K3 against their plain versions on the card.
+    out, captured = encoder_pass_capturing_k5(torch, attention, encoder,
+                                              requests[0])
+    if len(captured) != K5_PER_PASS:
+        fail(f"float32 1024^2 encoder pass took the flash branch "
+             f"{len(captured)} times")
+    bq, bk, bv, bscale = captured[K5_CHECK_CALL]
+    del captured
+    real_check = max_err(attention.flash_forward_cuda(bq, bk, bv, bscale)[0],
+                         attention.flash_forward_plain(bq, bk, bv, bscale)[0])
+    if bq.dtype != torch.float32 or not real_check["max_abs_err"] <= K5_TOLS[
+            "float32"][0] * real_check["ref_max_abs"]:
+        fail(f"float32 K5 on encoder block 12's q, k, v ({bq.dtype}) vs "
+             f"plain: {real_check}")
+    t = requests[0]["target"]
+    cams_args = (out["extrinsics_cwt"][:, 2:], t["intrinsics"][None],
+                 t["near"][None], t["far"][None], size, dec_cfg)
+    render_check, scan_ns = render_vs_plain(
+        torch, decode_splatting, cams_args, out["gaussians"], "float32 1024^2")
+    emit({"phase": "serving_1024_f32", "requests": F32_REQUESTS,
+          "compute_dtype": cfg.backbone.compute_dtype, "init_s": init_s,
+          "launches": serve_counts,
+          "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3 for r in results],
+          "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3 for r in results],
+          "peak_bytes": [r["peak_bytes"] for r in results],
+          "resident_bytes": resident,
+          "psnr": [r["psnr"][0] for r in results],
+          "dropped_entries": [r["dropped_entries"] for r in results],
+          "encoder_block12_qkv": {"shape": list(bq.shape), **real_check},
+          "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns})
+    del out, results, bq, bk, bv
+    torch.cuda.empty_cache()
+
+    # ---- train_1024_f32: make_train_step at b = 2 -----------------------
+    encoder.train()
+    optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
+    state = init_train_state(encoder, optimizer)
+    batches = [train_batch(50 + i, LONG_BATCH, HW_LONG) for i in range(2)]
+    loss_kwargs = dict(image_shape=size, decoder_cfg=dec_cfg,
+                       loss_cfg=LossConfig(), lpips=lpips,
+                       training_context=False)
+    probes = []
+
+    def probe(mb):
+        probes.append({"microbatch": mb, "peak_gb": loop.probe_peak_gb(
+            state, batches[0], mb, loss_kwargs)})
+        return probes[-1]["peak_gb"]
+
+    budget_gb = loop.device_memory_gb(dev)
+    t0 = time.perf_counter()
+    try:
+        microbatch, guard_peak = loop.fit_microbatch(probe, LONG_BATCH, None,
+                                                     budget_gb)
+    except HBMBudgetError as e:
+        fail(f"train_1024_f32: no microbatch fits {budget_gb} GiB: probes "
+             f"{probes}: {e}")
+    guard_s = time.perf_counter() - t0
+    microbatch = microbatch or LONG_BATCH
+    step_fn = make_train_step(encoder, optimizer, size, dec_cfg, LossConfig(),
+                              lpips, microbatch=microbatch)
+    # The (b, h, n_q, n_k) that the steps' autograd gives the backward
+    # kernels, recorded on the way through.
+    bwd_shapes = []
+    dkv_inner = attention.flash_backward_dkv_cuda
+
+    def capture_dkv(q_, k_, *rest):
+        bwd_shapes.append((*q_.shape[:3], k_.shape[2]))
+        return dkv_inner(q_, k_, *rest)
+
+    attention.flash_backward_dkv_cuda = capture_dkv
+    try:
+        with first_k2_launch(raster_cuda) as k2_seen:
+            cuda_lib.reset_launch_counts()
+            steps = [run_train_step(torch, dev, state, step_fn, b)
+                     for b in batches]
+            train_counts = dict(cuda_lib.launch_counts)
+    finally:
+        attention.flash_backward_dkv_cuda = dkv_inner
+    # Each microbatch pass runs the encoder forward once and, under remat,
+    # again in the backward; K1 and K2 run once a target camera, K3 twice.
+    passes = len(batches) * (LONG_BATCH // microbatch)
+    want = {k: 0 for k in train_counts}
+    want.update(flash_f32_forward=2 * K5_PER_PASS * passes,
+                flash_f32_backward_dkv=K5_PER_PASS * passes,
+                flash_f32_backward_dq=K5_PER_PASS * passes,
+                composite_forward=len(batches) * LONG_BATCH,
+                composite_backward=len(batches) * LONG_BATCH,
+                cumsum_1d=2 * len(batches) * LONG_BATCH)
+    if train_counts != want:
+        fail(f"train_1024_f32 launch counts {train_counts}, expected {want}")
+    k2_check = check_first_k2(torch, raster_cuda, k2_seen,
+                              "float32 1024^2 train step")
+    for st in steps:
+        emit({"phase": "train_step_1024_f32", "batch": LONG_BATCH,
+              "microbatch": microbatch, **st})
+    emit({"phase": "train_1024_f32", "batch": LONG_BATCH,
+          "microbatch": microbatch,
+          "guard": {"peak_gb": guard_peak, "budget_gb": budget_gb,
+                    "probes": probes, "seconds": guard_s},
+          "steps": len(steps), "launches": train_counts,
+          "step_ms": [st["ms"] for st in steps],
+          "peak_bytes": max(st["peak_bytes"] for st in steps),
+          "branches": [st["branch"] for st in steps],
+          "k2_vs_plain": k2_check, "backward_shapes": sorted(set(bwd_shapes))})
+    del encoder, optimizer, state, step_fn, batches, steps, k2_seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- K5_f32_train: the backward pair at the train steps' shapes -----
+    k5_train = {}
+    for shape in dict.fromkeys(bwd_shapes):
+        k5_train[shape] = k5_train_shape(torch, attention, shape, gen, dev,
+                                         torch.float32)
+        emit({"phase": "K5_f32_train",
+              "calls_per_2_steps": bwd_shapes.count(shape), **k5_train[shape]})
+    return {"k5": k5, "k5_train": k5_train, "serve": serve_counts,
+            "train": train_counts, "real_check": real_check,
+            "render_check": render_check, "k2_check": k2_check}
 
 
 def place_vggt_scene(torch, encoder) -> None:
@@ -635,7 +974,6 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     """The VGGT-1B family at full width, phases "vggt_serve" and
     "vggt_train"; returns each path's launch counts and the K2 check."""
     from spfsplatv2_tpu_torch.config import load_config
-    from spfsplatv2_tpu_torch.evaluation.benchmarker import Benchmarker
     from spfsplatv2_tpu_torch.evaluation.evaluator import (
         EvalConfig,
         evaluate_example,
@@ -670,20 +1008,11 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     evaluate_example(encoder, request(-3, hw[0]), hw, dec_cfg, eval_cfg,
                      device=dev)
     requests = [request(20 + i, hw[0]) for i in range(VGGT_REQUESTS)]
-    results = []
     # What the process holds before the requests (the encoder's weights
     # and what earlier phases left), inside each request's peak.
     resident = torch.cuda.memory_allocated(dev)
-    cuda_lib.reset_launch_counts()
-    for ex in requests:
-        bench = Benchmarker(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        res = evaluate_example(encoder, ex, hw, dec_cfg, eval_cfg,
-                               benchmarker=bench, device=dev)
-        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-        res["times"] = bench.summarize()
-        results.append(res)
-    serve_counts = dict(cuda_lib.launch_counts)
+    results, serve_counts = serve_requests(torch, dev, encoder, requests, hw,
+                                           dec_cfg, eval_cfg)
     want = {k: 0 for k in serve_counts}
     want.update(composite_forward=VGGT_REQUESTS, cumsum_1d=2 * VGGT_REQUESTS)
     if serve_counts != want:
@@ -720,7 +1049,7 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
           "dropped_entries": [r["dropped_entries"] for r in results],
           "points_in_front": float((out["depths"] > 0).float().mean()),
           "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
-          "conv_probe": conv_probe(torch, dev)})
+          "conv_probe": conv_probe(torch, dev, VGGT_CONVS, {224: (1, 2, 10)})})
     del out, results
     torch.cuda.empty_cache()
 
@@ -750,43 +1079,18 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     step_fn = make_train_step(encoder, optimizer, hw, dec_cfg, cfg.loss, lpips,
                               training_context=cfg.train.training_context,
                               microbatch=microbatch)
-    # K2's inputs and rows at the steps' first launch, and that camera's
-    # bins, recorded on the way through (the counts stay the wrapper's).
-    k2_calls, k2_bins = [], []
-    k2_inner, acc_inner = raster_cuda.composite_backward, raster_cuda.accumulate_rows
-
-    def capture_k2(*args):
-        rows = k2_inner(*args)
-        if not k2_calls:
-            k2_calls.append((args, rows))
-        return rows
-
-    def capture_bins(drows, bins, n_gauss):
-        if not k2_bins:
-            k2_bins.append((bins, n_gauss))
-        return acc_inner(drows, bins, n_gauss)
-
-    raster_cuda.composite_backward = capture_k2
-    raster_cuda.accumulate_rows = capture_bins
-    cuda_lib.reset_launch_counts()
-    try:
+    with first_k2_launch(raster_cuda) as k2_seen:
+        cuda_lib.reset_launch_counts()
         steps = [run_train_step(torch, dev, state, step_fn, b) for b in batches]
-    finally:
-        raster_cuda.composite_backward = k2_inner
-        raster_cuda.accumulate_rows = acc_inner
-    train_counts = dict(cuda_lib.launch_counts)
+        train_counts = dict(cuda_lib.launch_counts)
     cams = VGGT_STEPS * batch_size
     want = {k: 0 for k in train_counts}
     want.update(composite_forward=cams, composite_backward=cams,
                 cumsum_1d=2 * cams)
     if train_counts != want:
         fail(f"vggt_train launch counts {train_counts}, expected {want}")
-    # That launch's rows against K2's plain version on the same inputs.
-    (args, rows_k), (bins, g) = k2_calls[0], k2_bins[0]
-    with torch.no_grad():
-        rows_p = raster_cuda.composite_backward_plain(*args)
-    k2_check = check_k2_rows(raster_cuda.accumulate_rows, rows_k, rows_p, bins,
-                             g, "vggt train step")
+    # The steps' first K2 launch against its plain version.
+    k2_check = check_first_k2(torch, raster_cuda, k2_seen, "vggt train step")
     for st in steps:
         emit({"phase": "vggt_train_step", "batch": batch_size,
               "microbatch": microbatch, **st})
@@ -797,8 +1101,9 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
           "step_ms": [st["ms"] for st in steps],
           "peak_bytes": max(st["peak_bytes"] for st in steps),
           "branches": [st["branch"] for st in steps],
-          "k2_vs_plain": k2_check, "e_pad": bins.e_pad, "g": g})
-    del k2_calls, k2_bins, args, rows_k, rows_p, bins
+          "k2_vs_plain": k2_check, "e_pad": k2_seen["bins"].e_pad,
+          "g": k2_seen["g"]})
+    del k2_seen
     return {"serve": serve_counts, "train": train_counts,
             "render_check": render_check, "scan_ns": scan_ns,
             "k2_check": k2_check}
@@ -1580,7 +1885,8 @@ def main() -> int:
     # ---- 10. K5: flash attention at the 1024^2 path's shapes ----------
     k5 = {}
     for name, shape in K5_SHAPES.items():
-        k5[name] = k5_phase(torch, attention, name, shape, gen, dev)
+        k5[name] = k5_phase(torch, attention, name, shape, gen, dev,
+                            torch.bfloat16)
         emit({"phase": "K5", "call": name, **k5[name]})
     torch.cuda.empty_cache()
 
@@ -1590,22 +1896,13 @@ def main() -> int:
     evaluate_example(encoder, request(-2, HW_LONG), long_size, long_dec,
                      eval_cfg, device=dev)
     long_requests = [request(10 + i, HW_LONG) for i in range(3)]
-    long_results = []
-    cuda_lib.reset_launch_counts()
-    for ex in long_requests:
-        bench = Benchmarker(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        res = evaluate_example(encoder, ex, long_size, long_dec, eval_cfg,
-                               benchmarker=bench, device=dev)
-        res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-        res["times"] = bench.summarize()
-        long_results.append(res)
-    long_counts = dict(cuda_lib.launch_counts)
+    long_results, long_counts = serve_requests(
+        torch, dev, encoder, long_requests, long_size, long_dec, eval_cfg)
     n_req = len(long_requests)
-    want = {"flash_forward": K5_PER_PASS * n_req, "flash_backward_dkv": 0,
-            "flash_backward_dq": 0, "composite_forward": n_req,
-            "cumsum_1d": 2 * n_req}
-    if any(long_counts[key] != val for key, val in want.items()):
+    want = {k: 0 for k in long_counts}
+    want.update(flash_forward=K5_PER_PASS * n_req, composite_forward=n_req,
+                cumsum_1d=2 * n_req)
+    if long_counts != want:
         fail(f"1024^2 serving launch counts {long_counts}, expected {want}")
     for i, res in enumerate(long_results):
         if tuple(res["rendered"].shape) != (1, HW_LONG, HW_LONG, 3):
@@ -1624,21 +1921,9 @@ def main() -> int:
     # One encoder block's real q, k, v (block 12 of 24), captured from an
     # encoder pass on the first request, through K5 against the plain
     # version.
-    captured = []
-    flash_inner = attention.flash_attention
-
-    def capture(q_, k_, v_, s_):
-        captured.append((q_.contiguous(), k_.contiguous(), v_.contiguous(), s_))
-        return flash_inner(q_, k_, v_, s_)
-
-    attention.flash_attention = capture
-    try:
-        with torch.no_grad():
-            c, t = long_requests[0]["context"], long_requests[0]["target"]
-            long_out = encoder(c["image"][None], c["intrinsics"][None],
-                               t["image"][None], t["intrinsics"][None])
-    finally:
-        attention.flash_attention = flash_inner
+    long_out, captured = encoder_pass_capturing_k5(torch, attention, encoder,
+                                                   long_requests[0])
+    t = long_requests[0]["target"]
     if len(captured) != K5_PER_PASS:
         fail(f"1024^2 encoder pass took the flash branch {len(captured)} times")
     bq, bk, bv, bscale = captured[K5_CHECK_CALL]
@@ -1646,7 +1931,8 @@ def main() -> int:
     real_p, _ = attention.flash_forward_plain(bq, bk, bv, bscale)
     real_check = max_err(real_o, real_p)
     del captured
-    if not real_check["max_abs_err"] <= K5_TOL * real_check["ref_max_abs"]:
+    if not real_check["max_abs_err"] <= K5_TOLS["bfloat16"][0] * real_check[
+            "ref_max_abs"]:
         fail(f"K5 on encoder block 12's q, k, v vs plain: {real_check}")
     emit({"phase": "serving_1024", "requests": n_req, "launches": long_counts,
           "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3
@@ -1714,6 +2000,11 @@ def main() -> int:
     del long_out, g0, lproj, lbins, largs, lfwd, lcot, lrows_k
     torch.cuda.empty_cache()
 
+    # ---- conv_probe: the flagship heads' float32 convolutions ----------
+    emit({"phase": "conv_probe", "heads": "flagship DPTHead / DPTGSHead",
+          "maps": FLAGSHIP_CONV_MAPS,
+          "convs": conv_probe(torch, dev, FLAGSHIP_CONVS, FLAGSHIP_CONV_MAPS)})
+
     # ---- 12. the training path ----------------------------------------
     lpips = build_lpips(seed=SEED, device=dev)
     encoder.train()
@@ -1747,11 +2038,9 @@ def main() -> int:
     cuda_lib.reset_launch_counts()
     steps = [run_step(batch) for batch in batches[:3]]
     train_counts = dict(cuda_lib.launch_counts)
-    per_step = {"composite_forward": TRAIN_BATCH,
-                "composite_backward": TRAIN_BATCH,
-                "cumsum_1d": 2 * TRAIN_BATCH, "segmented_scan": 0,
-                "flash_forward": 0, "flash_backward_dkv": 0,
-                "flash_backward_dq": 0}
+    per_step = {k: 0 for k in train_counts}
+    per_step.update(composite_forward=TRAIN_BATCH,
+                    composite_backward=TRAIN_BATCH, cumsum_1d=2 * TRAIN_BATCH)
     if train_counts != {k: 3 * v for k, v in per_step.items()}:
         fail(f"train launch counts {train_counts} for 3 steps of "
              f"{TRAIN_BATCH} cameras")
@@ -1806,12 +2095,12 @@ def main() -> int:
     # runs the encoder forward once and, under remat, again in the
     # backward; K1/K2 run once per target camera, K3 twice.
     passes = 2 * (LONG_BATCH // LONG_MICROBATCH)
-    want = {"flash_forward": 2 * K5_PER_PASS * passes,
-            "flash_backward_dkv": K5_PER_PASS * passes,
-            "flash_backward_dq": K5_PER_PASS * passes,
-            "composite_forward": 2 * LONG_BATCH,
-            "composite_backward": 2 * LONG_BATCH,
-            "cumsum_1d": 4 * LONG_BATCH, "segmented_scan": 0}
+    want = {k: 0 for k in long_train_counts}
+    want.update(flash_forward=2 * K5_PER_PASS * passes,
+                flash_backward_dkv=K5_PER_PASS * passes,
+                flash_backward_dq=K5_PER_PASS * passes,
+                composite_forward=2 * LONG_BATCH,
+                composite_backward=2 * LONG_BATCH, cumsum_1d=4 * LONG_BATCH)
     if long_train_counts != want:
         fail(f"1024^2 train launch counts {long_train_counts}, expected {want}")
     for st in long_steps:
@@ -1828,12 +2117,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5_train = {}
     for shape in dict.fromkeys(bwd_shapes):
-        k5_train[shape] = k5_train_shape(torch, attention, shape, gen, dev)
+        k5_train[shape] = k5_train_shape(torch, attention, shape, gen, dev,
+                                         torch.bfloat16)
         emit({"phase": "K5_train", "calls_per_2_steps": bwd_shapes.count(shape),
               **k5_train[shape]})
 
+    # ---- the float32 long-context path (1024^2) -----------------------
+    del encoder, optimizer, state, train_step, long_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = f32_phases(torch, dev, request, train_batch, lpips, gen)
+
     # ---- 14-18. the command line ---------------------------------------
-    del encoder, optimizer, state, train_step, long_train_step, lpips
+    del lpips
     gc.collect()
     torch.cuda.empty_cache()
     cli_counts = cli_phases(torch, repo, dev)
@@ -1844,23 +2140,50 @@ def main() -> int:
     torch.cuda.empty_cache()
     vggt_cli_counts = vggt_cli_phase(torch, repo, dev)
     shutil.rmtree(repo / "build" / "cli")
+    emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
 
     # ---- kernels line, card, result -----------------------------------
     # Launches: each kernel's count over its path: K1-K3 over the training
     # path's 3 steps, K4 over the segscan step, K5's forward over the 3
-    # requests at 1024^2, its backward kernels over the 2 train steps at
-    # 1024^2; the other paths' counts beside them.  K5's times are those
-    # at the encoder's shape (phase 10 has all three); the backward
-    # kernels' entries add their times at the train step's shapes.
+    # requests at 1024^2 (bf16, or float32 for its float32 kernel), its
+    # backward kernels over the 2 train steps at 1024^2; the other paths'
+    # counts beside them.  K5's times are those at the encoder's shape
+    # (phases "K5" and "K5_f32" have all three); the backward kernels'
+    # entries add their times at the train steps' shapes.
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
              "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
              "serving_1024_3_requests": long_counts,
-             "train_1024_2_steps": long_train_counts, **cli_counts,
+             "train_1024_2_steps": long_train_counts,
+             "serving_1024_f32_3_requests": f32["serve"],
+             "train_1024_f32_2_steps": f32["train"], **cli_counts,
              "vggt_serve_3_requests": vggt["serve"],
              "vggt_train_2_steps": vggt["train"], **vggt_cli_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
+
+    def k5_entries(dtype, results, train_results, serve, train):
+        lines = {"forward": 331, "backward_dkv": 796, "backward_dq": 1146}
+        entries = []
+        for role, name in k5_kernels(attention, dtype).items():
+            entry = {
+                "name": name, "route": "cuda",
+                "source": f"spfsplatv2_tpu_torch/csrc/{name}.cu",
+                "replaces": "jax/experimental/pallas/ops/tpu/"
+                            f"flash_attention.py:{lines[role]}",
+                "launches": (serve if role == "forward" else train)[name],
+                "launches_by_path": by_path(name),
+                **results["encoder"]["kernels"][name],
+                "shape": results["encoder"]["shape"], "dtype": str(dtype),
+                "check": {call: {key: c["max_abs_err"] / c["ref_max_abs"]
+                                 for key, c in res["vs_plain"].items()}
+                          for call, res in results.items()}}
+            if role != "forward":
+                entry["at_train_shapes"] = [
+                    {"shape": list(shape), **res["kernels"][name]}
+                    for shape, res in train_results.items()]
+            entries.append(entry)
+        return entries
 
     emit({"kernels": [
         {"name": "composite_forward", "route": "cuda",
@@ -1875,6 +2198,9 @@ def main() -> int:
                    "render_1024_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in render_check.items()},
+                   "render_1024_f32_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in f32["render_check"].items()},
                    "render_vggt_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in vggt["render_check"].items()}}},
@@ -1888,6 +2214,7 @@ def main() -> int:
                    k2_check["rows_over_1e-4_of_max"],
                    "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),
                    "camera_1024_vs_plain": k2_long,
+                   "train_1024_f32_step_vs_plain": f32["k2_check"],
                    "vggt_train_step_vs_plain": vggt["k2_check"]}},
         {"name": "cumsum_1d", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/prefix_scan.cu",
@@ -1905,25 +2232,10 @@ def main() -> int:
          "launches": segscan_counts["segmented_scan"],
          "launches_by_path": by_path("segmented_scan"), **k4,
          "check": {"vs_plain_within_1e-5_of_running_abs_sum": True}},
-        *[{"name": name, "route": "cuda",
-           "source": f"spfsplatv2_tpu_torch/csrc/{name}.cu",
-           "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
-                       f"{line}",
-           "launches": (long_counts if name == "flash_forward"
-                        else long_train_counts)[name],
-           "launches_by_path": by_path(name),
-           **k5["encoder"]["kernels"][name],
-           "shape": k5["encoder"]["shape"],
-           **({"at_train_shapes": [
-               {"shape": list(shape), **res["kernels"][name]}
-               for shape, res in k5_train.items()]}
-              if name != "flash_forward" else {}),
-           "check": {call: {key: c["max_abs_err"] / c["ref_max_abs"]
-                            for key, c in res["vs_plain"].items()}
-                     for call, res in k5.items()}}
-          for name, line in (("flash_forward", 331),
-                             ("flash_backward_dkv", 796),
-                             ("flash_backward_dq", 1146))],
+        *k5_entries(torch.bfloat16, k5, k5_train, long_counts,
+                    long_train_counts),
+        *k5_entries(torch.float32, f32["k5"], f32["k5_train"], f32["serve"],
+                    f32["train"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,6 +2,7 @@
 
     python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train] [256|1024]
     python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|align|train] 224 spfsplatv2l
+    python -m spfsplatv2_tpu_torch.evaluation.profile_request [serving|train] 1024 spfsplatv2 float32
 
 Builds the encoder (the flagship, or the one named by the third
 argument: "spfsplatv2l" is the VGGT-1B family at the
@@ -20,7 +21,9 @@ The second argument is the image size: 256 (default) or 1024 for the
 flagship, where at 1024 every self-attention takes flash attention (K5),
 the binning takes the quantized depth key and a train step takes b = 2;
 224 for the VGGT family (b = 10 in microbatches of 5, the memory
-guard's choice on the 80 GB card).
+guard's choice on the 80 GB card).  The fourth argument sets the
+flagship backbone's compute dtype (default bfloat16; float32 sends every
+1024^2 self-attention to K5's float32 kernels).
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
 from spfsplatv2_tpu_torch.models import EncoderSelectorConfig, get_encoder
+from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, LONG_CONTEXT_DECODER
+from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
 
 ALIGN_STEPS = 10
 # Image size -> (decoder config, train batch, microbatch).
@@ -101,10 +106,20 @@ def _runner(path: str, encoder, hw: int, seed: int, dev):
     raise ValueError(f"unknown path {path!r}: serving, align or train")
 
 
+def _selector(encoder_name: str, compute_dtype: str) -> EncoderSelectorConfig:
+    if compute_dtype == "bfloat16":
+        return EncoderSelectorConfig(name=encoder_name)
+    if encoder_name != "spfsplatv2":
+        raise ValueError("a compute dtype is set here for the flagship "
+                         "spfsplatv2 only")
+    return EncoderSelectorConfig(name=encoder_name, spfsplatv2=SPFSplatV2Config(
+        backbone=CrocoBackboneConfig(compute_dtype=compute_dtype)))
+
+
 def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
-         seed: int = 0) -> dict:
+         compute_dtype: str = "bfloat16", seed: int = 0) -> dict:
     dev = torch.device("cuda")
-    encoder = get_encoder(EncoderSelectorConfig(name=encoder_name), seed=seed,
+    encoder = get_encoder(_selector(encoder_name, compute_dtype), seed=seed,
                           device=dev)
     run = _runner(path, encoder, hw, seed, dev)
     run()
@@ -128,6 +143,7 @@ def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
         "path": path,
         "image_size": hw,
         "encoder": encoder_name,
+        "compute_dtype": compute_dtype,
         "device": torch.cuda.get_device_name(0),
         "peak_bytes": torch.cuda.max_memory_allocated(dev),
         "wall_ms_under_profiler": wall_ms,
@@ -142,4 +158,4 @@ def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2], *map(int, sys.argv[2:3]), *sys.argv[3:4])
+    main(*sys.argv[1:2], *map(int, sys.argv[2:3]), *sys.argv[3:5])

@@ -197,9 +197,9 @@ class MaskedCrocoBackbone(nn.Module):
              (dec_keys, cfg.dec_embed_dim // cfg.dec_num_heads)])
         if reason is not None:
             raise ValueError(f"{reason}: set CrocoBackboneConfig."
-                             f"compute_dtype to 'bfloat16' (it is "
-                             f"{cfg.compute_dtype!r}) and keep 64-wide heads, "
-                             f"or use smaller images")
+                             f"compute_dtype to 'bfloat16' or 'float32' (it "
+                             f"is {cfg.compute_dtype!r}) and keep 64-wide "
+                             f"heads, or use smaller images")
 
         remat = cfg.remat and torch.is_grad_enabled()
 

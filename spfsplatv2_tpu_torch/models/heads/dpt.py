@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from spfsplatv2_tpu_torch.utils.cudnn import without_cudnn
 from spfsplatv2_tpu_torch.utils.interp import resize_bilinear_nchw
 
 
@@ -106,7 +107,14 @@ class DPTHead(nn.Module):
 
     def forward(self, hooked_tokens, grid):
         """-> (b, h, w, out_channels)."""
-        x = self.head_conv1(self.core(hooked_tokens, grid))
+        # cuDNN's float32 forward (TF32 off) of this convolution, 256 -> 128
+        # channels 3x3 on the core's 128^2 maps at 256^2 images, takes an
+        # FFT algorithm from 2 maps on: 361 ms and a 17.6 GB workspace for
+        # 2 maps, 22.5 ms and 19.6 GB for 16, where PyTorch's own im2col +
+        # GEMM takes 0.68 and 5.3 ms (H100, cuDNN 9.2; `chip_smoke.py`
+        # phase "conv_probe", which found none of the heads' other
+        # convolutions so).  Only the forward is switched.
+        x = without_cudnn(self.head_conv1, self.core(hooked_tokens, grid))
         x = F.relu(self.head_conv2(_upsample2x(x)))
         return self.head_out(x).permute(0, 2, 3, 1)
 

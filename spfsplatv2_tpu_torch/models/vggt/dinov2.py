@@ -46,7 +46,8 @@ def check_flash_limits(device, dtype: torch.dtype, keys: int, head_dim: int,
     reason = flash_limits_violation(device, dtype, [(keys, head_dim)])
     if reason is not None:
         raise ValueError(f"{reason}: set {where}.compute_dtype to 'bfloat16' "
-                         f"and keep 64-wide heads, or use smaller images")
+                         f"or 'float32' and keep 64-wide heads, or use "
+                         f"smaller images")
 
 
 class DinoV2(nn.Module):

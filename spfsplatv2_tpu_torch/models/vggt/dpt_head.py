@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spfsplatv2_tpu_torch.models.croco.layers import LayerNorm
+from spfsplatv2_tpu_torch.utils.cudnn import without_cudnn
 from spfsplatv2_tpu_torch.utils.interp import resize_bilinear_nchw
 
 
@@ -56,17 +57,6 @@ class VGGTFeatureFusionBlock(nn.Module):
         if out_hw is None:
             out_hw = (2 * x.shape[-2], 2 * x.shape[-1])
         return self.out_conv(resize_bilinear_nchw(x, out_hw))
-
-
-def without_cudnn(fn, *args):
-    """fn(*args) with cuDNN off (only `enabled` is touched: cuDNN's
-    `flags()` would also reset its TF32 and precision settings)."""
-    enabled = torch.backends.cudnn.enabled
-    torch.backends.cudnn.enabled = False
-    try:
-        return fn(*args)
-    finally:
-        torch.backends.cudnn.enabled = enabled
 
 
 HOOK_FRACTIONS = (4 / 23, 11 / 23, 17 / 23, 1.0)

@@ -4,12 +4,15 @@
 Short sequences take the dense form: einsum in the compute dtype, float32
 logits and softmax, then a cast back (plain tensor ops in JAX too).  At
 `FLASH_MIN_KV` keys or more, `sdpa` takes the flash attention of kernel
-K5, the port of JAX's bundled TPU flash attention: on CUDA tensors the
-three hand-written kernels `csrc/flash_forward.cu`,
-`csrc/flash_backward_dkv.cu` and `csrc/flash_backward_dq.cu` behind a
-`torch.autograd.Function`; on CPU tensors their plain version, the dense
-form.  The view-masked attention stays dense below `chunked_min_kv` keys
-and is computed in query chunks above it, as in JAX (no kernel there).
+K5, the port of JAX's bundled TPU flash attention: on CUDA tensors
+three hand-written kernels behind a `torch.autograd.Function`, picked by
+the inputs' dtype (bf16: `csrc/flash_forward.cu`,
+`csrc/flash_backward_dkv.cu`, `csrc/flash_backward_dq.cu`; float32:
+`csrc/flash_f32_forward.cu`, `csrc/flash_f32_backward_dkv.cu`,
+`csrc/flash_f32_backward_dq.cu`); on CPU tensors their plain version, the
+dense form.  The view-masked attention stays dense below `chunked_min_kv`
+keys and is computed in query chunks above it, as in JAX (no kernel
+there).
 """
 
 from __future__ import annotations
@@ -20,6 +23,15 @@ from spfsplatv2_tpu_torch.ops import cuda_lib
 
 FLASH_MIN_KV = 4096
 HEAD_DIM = 64  # the only head dim K5 takes (1024 / 16 and 768 / 12)
+# K5's libraries (`csrc/<name>.cu`: forward, dK/dV, dQ) for each dtype it
+# takes.  As in the TPU kernel, the products run in the inputs' dtype with
+# float32 sums, and the outputs come back in that dtype.
+FLASH_KERNELS = {
+    torch.bfloat16: ("flash_forward", "flash_backward_dkv",
+                     "flash_backward_dq"),
+    torch.float32: ("flash_f32_forward", "flash_f32_backward_dkv",
+                    "flash_f32_backward_dq"),
+}
 
 
 def _dense(q, k, v, scale):
@@ -28,11 +40,29 @@ def _dense(q, k, v, scale):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def _check_flash_inputs(tensors: dict, n_q: int, n_k: int) -> int:
-    """Raise unless K5 takes these tensors; returns batch x heads."""
-    q = tensors["q"]
+def _require_cuda(tensors: dict) -> None:
     for name, t in tensors.items():
-        cuda_lib.require(t, name, torch.bfloat16, 4, q.device)
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
+                             f"got {t.device}")
+
+
+def _check_flash_inputs(tensors: dict, n_q: int, n_k: int) -> int:
+    """Raise unless K5 takes these tensors: one dtype that a kernel takes
+    (bf16 or float32), one device, (b, h, n, 64), contiguous and 16-byte
+    aligned; returns batch x heads.  Whether they lie on the card is the
+    wrappers' own check."""
+    q = tensors["q"]
+    if q.dtype not in FLASH_KERNELS:
+        raise ValueError(f"flash attention takes bfloat16 or float32, got "
+                         f"{q.dtype}")
+    for name, t in tensors.items():
+        if t.dtype != q.dtype or t.device != q.device or t.ndim != 4:
+            raise ValueError(
+                f"{name}: expected 4-d {q.dtype} on {q.device} as q, got "
+                f"{t.ndim}-d {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: must be 16-byte aligned")
     b, h, _, d = q.shape
@@ -55,17 +85,18 @@ def flash_limits_violation(device: torch.device, dtype: torch.dtype,
 
     `attentions` lists each self-attention's (keys, head dim).  One with
     `FLASH_MIN_KV` keys or more (read at call time, as `sdpa` does) on a
-    CUDA device takes K5, which takes bf16 with head dim 64 only; on the
-    CPU it is dense and takes anything."""
+    CUDA device takes K5, which takes bfloat16 or float32 with head dim 64
+    only; on the CPU it is dense and takes anything."""
     if torch.device(device).type != "cuda":
         return None
     for keys, head_dim in attentions:
-        if keys >= FLASH_MIN_KV and (dtype != torch.bfloat16
+        if keys >= FLASH_MIN_KV and (dtype not in FLASH_KERNELS
                                      or head_dim != HEAD_DIM):
             return (f"a self-attention over {keys} keys takes the flash "
                     f"attention kernel K5 (at {FLASH_MIN_KV} keys or more "
-                    f"on CUDA), which takes bfloat16 with head dim "
-                    f"{HEAD_DIM} only; got {dtype} with head dim {head_dim}")
+                    f"on CUDA), which takes bfloat16 or float32 with head "
+                    f"dim {HEAD_DIM} only; got {dtype} with head dim "
+                    f"{head_dim}")
     return None
 
 
@@ -80,10 +111,11 @@ def _require_f32(t: torch.Tensor, name: str, shape: tuple, device) -> None:
 def flash_forward_plain(q, k, v, scale):
     """The plain version of K5's forward, in its arithmetic: float32 logits
     and softmax numerator, the numerator rounded to v's dtype for the PV
-    product, the sum taken in float32.  Returns O in v's dtype and the
-    rows' log-sum-exp, (b, h, n_q) float32.  (`flash_attention` on CPU
-    tensors takes the dense form instead, which rounds the logits to the
-    compute dtype, as JAX's dense branch does.)"""
+    product (nothing is rounded for float32), the sum taken in float32.
+    Returns O in v's dtype and the rows' log-sum-exp, (b, h, n_q)
+    float32.  (`flash_attention` on CPU tensors takes the dense form
+    instead, which rounds the logits to the compute dtype, as JAX's dense
+    branch does.)"""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -93,31 +125,35 @@ def flash_forward_plain(q, k, v, scale):
 
 
 def flash_forward_cuda(q, k, v, scale):
-    """Launch K5's forward on contiguous (b, h, n, 64) bf16 CUDA tensors;
-    returns O (b, h, n_q, 64) bf16 and lse (b, h, n_q) float32."""
+    """Launch K5's forward on contiguous (b, h, n, 64) bf16 or float32 CUDA
+    tensors (the kernel of their dtype); returns O (b, h, n_q, 64) in that
+    dtype and lse (b, h, n_q) float32."""
     n_q, n_k = q.shape[2], k.shape[2]
-    bh = _check_flash_inputs({"q": q, "k": k, "v": v}, n_q, n_k)
+    tensors = {"q": q, "k": k, "v": v}
+    _require_cuda(tensors)
+    bh = _check_flash_inputs(tensors, n_q, n_k)
     scale = float(scale)
-    # The kernel takes a positive scale (its row max is over the raw
-    # logits); any other is folded into q, exactly in bf16.
+    # The bf16 kernel takes a positive scale (its row max is over the raw
+    # logits); any other is folded into q, exactly in either dtype.
     if scale < 0:
         q, scale = -q, -scale
     elif scale == 0:
         q, scale = torch.zeros_like(q), 1.0
+    name = FLASH_KERNELS[q.dtype][0]
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    err = cuda_lib.library("flash_forward").spf_flash_forward(
+    err = getattr(cuda_lib.library(name), f"spf_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, n_q, n_k, scale, cuda_lib.stream_handle(q.device))
-    cuda_lib.launch_counts["flash_forward"] += 1
-    cuda_lib.check(err, "flash_forward")
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.check(err, name)
     return o, lse
 
 
 def _p_and_ds(q, k, v, do, lse, di, scale):
     """K5's backward arithmetic in float32: P rebuilt from lse and dS, both
     rounded to the inputs' dtype, as the kernels round them before their
-    last products."""
+    last products (a no-op for float32, whose kernels round nothing)."""
     p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
                   * scale - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
@@ -139,35 +175,43 @@ def flash_backward_dq_plain(q, k, v, do, lse, di, scale):
     return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(q.dtype)
 
 
-def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale):
-    """Launch K5's dK/dV kernel; returns (dk, dv) bf16."""
-    n_q, n_k = q.shape[2], k.shape[2]
-    bh = _check_flash_inputs({"q": q, "k": k, "v": v, "do": do}, n_q, n_k)
+def _check_backward_inputs(q, k, v, do, lse, di) -> int:
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    _require_cuda({**tensors, "lse": lse, "di": di})
+    bh = _check_flash_inputs(tensors, q.shape[2], k.shape[2])
     _require_f32(lse, "lse", tuple(q.shape[:3]), q.device)
     _require_f32(di, "di", tuple(q.shape[:3]), q.device)
+    return bh
+
+
+def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale):
+    """Launch K5's dK/dV kernel of the inputs' dtype; returns (dk, dv) in
+    that dtype."""
+    bh = _check_backward_inputs(q, k, v, do, lse, di)
+    name = FLASH_KERNELS[q.dtype][1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = cuda_lib.library("flash_backward_dkv").spf_flash_backward_dkv(
+    err = getattr(cuda_lib.library(name), f"spf_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, n_q, n_k, float(scale), cuda_lib.stream_handle(q.device))
-    cuda_lib.launch_counts["flash_backward_dkv"] += 1
-    cuda_lib.check(err, "flash_backward_dkv")
+        bh, q.shape[2], k.shape[2], float(scale),
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.check(err, name)
     return dk, dv
 
 
 def flash_backward_dq_cuda(q, k, v, do, lse, di, scale):
-    """Launch K5's dQ kernel; returns dq bf16."""
-    n_q, n_k = q.shape[2], k.shape[2]
-    bh = _check_flash_inputs({"q": q, "k": k, "v": v, "do": do}, n_q, n_k)
-    _require_f32(lse, "lse", tuple(q.shape[:3]), q.device)
-    _require_f32(di, "di", tuple(q.shape[:3]), q.device)
+    """Launch K5's dQ kernel of the inputs' dtype; returns dq in that
+    dtype."""
+    bh = _check_backward_inputs(q, k, v, do, lse, di)
+    name = FLASH_KERNELS[q.dtype][2]
     dq = torch.empty_like(q)
-    err = cuda_lib.library("flash_backward_dq").spf_flash_backward_dq(
+    err = getattr(cuda_lib.library(name), f"spf_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), bh, n_q, n_k,
-        float(scale), cuda_lib.stream_handle(q.device))
-    cuda_lib.launch_counts["flash_backward_dq"] += 1
-    cuda_lib.check(err, "flash_backward_dq")
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), bh, q.shape[2],
+        k.shape[2], float(scale), cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.check(err, name)
     return dq
 
 
@@ -201,8 +245,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, scale):
-    """Exact softmax attention over (b, h, n, d): K5 on CUDA tensors (bf16,
-    d = 64, or it raises), the dense form on CPU tensors."""
+    """Exact softmax attention over (b, h, n, d): K5 on CUDA tensors (bf16
+    or float32, d = 64, or it raises), the dense form on CPU tensors."""
     if q.is_cuda:
         return _FlashAttention.apply(q, k, v, scale)
     return _dense(q, k, v, scale)

@@ -88,42 +88,49 @@ def test_cull_box_culls():
 
 
 @pytest.mark.parametrize("dtype,head_dim,keys,device,fires", [
-    (torch.float32, 64, 4096, "cuda", True),
+    (torch.float16, 64, 4096, "cuda", True),
     (torch.bfloat16, 32, 4096, "cuda", True),
     (torch.float16, 64, 5000, "cuda", True),
     (torch.bfloat16, 64, 4096, "cuda", False),
     (torch.float32, 64, 4095, "cuda", False),
     (torch.float32, 32, 4096, "cpu", False),
+    (torch.float32, 64, 4096, "cuda", False),
+    (torch.float32, 32, 4096, "cuda", True),
 ])
 def test_flash_limits_check(dtype, head_dim, keys, device, fires):
     """The predicate behind the encoder's check: it names K5's limits for a
     self-attention that would reach K5 on CUDA tensors at FLASH_MIN_KV
-    keys or more in another dtype or head dim, and is silent on CPU and
-    below the threshold."""
+    keys or more in a dtype that no K5 kernel takes (float16) or another
+    head dim than 64, and is silent for bf16 and float32 with 64-wide
+    heads, on CPU and below the threshold."""
     msg = attention.flash_limits_violation(torch.device(device), dtype,
                                            [(keys // 2, head_dim),
                                             (keys, head_dim)])
     assert (msg is not None) == fires
     if fires:
-        assert "bfloat16" in msg and "head dim 64" in msg
+        assert "bfloat16 or float32" in msg and "head dim 64" in msg
 
 
 class _Computed(Exception):
     pass
 
 
-@pytest.mark.parametrize("compute_dtype,min_kv,raises", [
-    ("float32", 4, True), ("bfloat16", 4, False), ("float32", 7, False)])
-def test_encoder_names_k5_limits(monkeypatch, compute_dtype, min_kv, raises):
+@pytest.mark.parametrize("compute_dtype,num_heads,min_kv,raises", [
+    ("float16", 2, 4, True), ("float32", 4, 4, True), ("bfloat16", 2, 4, False),
+    ("float32", 2, 4, False), ("float32", 4, 7, False)])
+def test_encoder_names_k5_limits(monkeypatch, compute_dtype, num_heads, min_kv,
+                                 raises):
     """The CroCo backbone raises before any computation when a per-view
-    self-attention would hand K5 another dtype than bf16 on CUDA tensors
-    (here pretended: the check is told the images lie on "cuda"), and
-    reads FLASH_MIN_KV at call time, as sdpa does."""
+    self-attention would hand K5 on CUDA tensors (here pretended: the
+    check is told the images lie on "cuda") a dtype that no K5 kernel
+    takes (float16) or heads other than 64 wide (128 / 4 = 32); bf16 and
+    float32 with 64-wide heads reach the computation.  It reads
+    FLASH_MIN_KV at call time, as sdpa does."""
     from spfsplatv2_tpu_torch.models.croco import backbone
 
     cfg = backbone.CrocoBackboneConfig(
-        patch_size=16, enc_depth=1, enc_embed_dim=128, enc_num_heads=2,
-        dec_depth=1, dec_embed_dim=128, dec_num_heads=2,
+        patch_size=16, enc_depth=1, enc_embed_dim=128, enc_num_heads=num_heads,
+        dec_depth=1, dec_embed_dim=128, dec_num_heads=num_heads,
         compute_dtype=compute_dtype)
     model = backbone.MaskedCrocoBackbone(cfg)
 

@@ -90,6 +90,47 @@ def test_encoder_matches_jax(encoders, case):
                   - np.eye(4)).max() > 1e-2
 
 
+def test_dpt_heads_run_head_conv1_off_cudnn(encoders):
+    """The flagship DPT heads' float32 3x3 and 7x7 convolutions: the
+    pointmap heads' `head_conv1` runs its forward with cuDNN off (cuDNN
+    picks an FFT algorithm for it on the card), every other one with
+    cuDNN as set (forward hooks record the flag), and the heads' outputs
+    still equal the JAX heads'."""
+    jenc, params, tenc, args = encoders
+    seen, hooks = {}, []
+
+    def record(name):
+        def hook(module, inputs, output):
+            seen.setdefault(name, torch.backends.cudnn.enabled)
+        return hook
+
+    for name, mod in tenc.named_modules():
+        if name.startswith(("downstream_head", "gaussian_param_head")) and \
+                isinstance(mod, torch.nn.Conv2d) and mod.kernel_size[0] >= 3 \
+                and ".core." not in name:
+            hooks.append(mod.register_forward_hook(record(name)))
+    try:
+        with torch.no_grad():
+            tout = tenc(*map(to_torch, args))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert torch.backends.cudnn.enabled
+    off = {f"downstream_head{s}.head_conv1" for s in (1, 2)}
+    assert set(seen) == off | {
+        f"{head}{s}.{conv}" for s in (1, 2) for head, conv in (
+            ("downstream_head", "head_conv2"),
+            ("gaussian_param_head", "input_merger"),
+            ("gaussian_param_head", "head_conv"))}
+    assert {name for name, enabled in seen.items() if not enabled} == off
+    jout = jax.jit(jenc.apply)(params, *args)
+    for name in ("pts3d", "depths", "densities"):
+        close(tout[name].numpy(), jout[name], msg=name)
+    for name in ("means", "covariances", "harmonics", "opacities"):
+        close(getattr(tout["gaussians"], name).numpy(),
+              getattr(jout["gaussians"], name), msg=name)
+
+
 def test_from_flax_layouts():
     rng = np.random.default_rng(3)
     tree = {"params": {

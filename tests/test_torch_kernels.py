@@ -89,6 +89,33 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_backward_dq_cuda(*qkv, *stats, 0.125)
 
 
+@pytest.mark.parametrize("case", ["bfloat16", "float32", "mixed_dtypes",
+                                  "float16", "head_dim_32"])
+def test_flash_input_check(case):
+    """K5's input check, called directly on CPU tensors: one dtype that a
+    kernel takes (bf16 or float32) with head dim 64 passes; mixed dtypes,
+    float16 and head dim 32 raise, naming what is wrong."""
+    from spfsplatv2_tpu_torch.ops.attention import _check_flash_inputs
+
+    dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+        case, torch.float32)
+    d = 32 if case == "head_dim_32" else 64
+    tensors = {"q": torch.zeros(2, 3, 70, d, dtype=dtype),
+               "k": torch.zeros(2, 3, 90, d, dtype=dtype),
+               "v": torch.zeros(2, 3, 90, d, dtype=dtype),
+               "do": torch.zeros(2, 3, 70, d, dtype=dtype)}
+    if case == "mixed_dtypes":
+        tensors["v"] = tensors["v"].to(torch.bfloat16)
+    if case in ("bfloat16", "float32"):
+        assert _check_flash_inputs(tensors, 70, 90) == 6
+        return
+    match = {"mixed_dtypes": "v: expected 4-d torch.float32",
+             "float16": "bfloat16 or float32, got torch.float16",
+             "head_dim_32": "head dim 64, got 32"}[case]
+    with pytest.raises(ValueError, match=match):
+        _check_flash_inputs(tensors, 70, 90)
+
+
 def _check_cumsum(x: torch.Tensor) -> None:
     """K3 on x against torch.cumsum: int32 exact; float32 sums in two
     orders, within 1e-5 of the running sum of |x|."""
@@ -398,11 +425,11 @@ def test_segscan_accumulation_equals_segsum_on_card(cuda_device, monkeypatch):
                                atol=1e-5)
 
 
-def _flash_inputs(device, b, h, n_q, n_k, seed=0):
+def _flash_inputs(device, b, h, n_q, n_k, seed=0, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     make = lambda n: torch.from_numpy(  # noqa: E731
         rng.standard_normal((b, h, n, 64)).astype(np.float32)).to(
-            device, torch.bfloat16)
+            device, dtype)
     return make(n_q), make(n_k), make(n_k), make(n_q)
 
 
@@ -413,14 +440,25 @@ def _within(actual, desired, frac):
         desired.abs().max())
 
 
-def _check_flash_kernels(device, b, h, n_q, n_k):
-    q, k, v, do = _flash_inputs(device, b, h, n_q, n_k)
+# Kernel against plain version, as fractions of max |plain|: O, lse, the
+# gradients, and the gradients' absolute bar with one key (below).  bf16:
+# both round P (and dS) to bf16 and O to bf16.  float32: nothing is
+# rounded; only the order of float32 sums differs.
+FLASH_TOLS = {torch.bfloat16: (1e-2, 1e-4, 1e-2, 1e-3),
+              torch.float32: (2e-5, 2e-5, 1e-4, 1e-4)}
+
+
+def _check_flash_kernels(device, b, h, n_q, n_k, dtype=torch.bfloat16):
+    o_tol, lse_tol, grad_tol, one_key_atol = FLASH_TOLS[dtype]
+    q, k, v, do = _flash_inputs(device, b, h, n_q, n_k, dtype=dtype)
     scale = 0.125
     o, lse = flash_forward_cuda(q, k, v, scale)
     torch.cuda.synchronize()
     o_p, lse_p = flash_forward_plain(q, k, v, scale)
-    assert _within(o, o_p, 1e-2)
-    assert float((lse - lse_p).abs().max()) <= 1e-4 * float(lse_p.abs().max())
+    assert o.dtype == dtype
+    assert _within(o, o_p, o_tol)
+    assert float((lse - lse_p).abs().max()) <= lse_tol * float(
+        lse_p.abs().max())
     di = (do.float() * o.float()).sum(-1)
     dk, dv = flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
     dq = flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
@@ -429,12 +467,12 @@ def _check_flash_kernels(device, b, h, n_q, n_k):
     dq_p = flash_backward_dq_plain(q, k, v, do, lse, di, scale)
     for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p),
                             ("dv", dv, dv_p)):
-        assert bool(torch.isfinite(got).all()), name
+        assert got.dtype == dtype and bool(torch.isfinite(got).all()), name
         if n_k == 1 and name != "dv":
             err = float((got.float() - want.float()).abs().max())
-            assert err <= 1e-3, (name, err)
+            assert err <= one_key_atol, (name, err)
         else:
-            assert _within(got, want, 1e-2), name
+            assert _within(got, want, grad_tol), name
 
 
 @pytest.mark.cuda
@@ -460,6 +498,39 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
     zero up to rounding: a bar relative to their max means nothing
     there, and they are held within 1e-3 absolute."""
     _check_flash_kernels(cuda_device, 1, 3, n_q, n_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n_k",
+                         [(4098, 4098), (4096, 4096), (300, 389), (100, 7),
+                          (64, 1), (63, 65), (65, 63), (130, 4098),
+                          (4098, 127), (4098, 129)])
+def test_flash_f32_kernels_match_plain(cuda_device, n_q, n_k):
+    """K5's float32 kernels (csrc/flash_f32_*.cu) against their plain
+    versions at ragged lengths: O and lse within 2e-5 of their max, dQ,
+    dK and dV within 1e-4 (nothing is rounded; float32 sums in another
+    order).  Each CTA takes 64 query rows (forward, dQ) or keys (dK/dV)
+    and walks 64-row tiles of the other axis: (63, 65), (65, 63) and
+    (4098, 127-129) end at both sides of a tile; with one key dQ and dK
+    are zero up to rounding and held within 1e-4 absolute."""
+    _check_flash_kernels(cuda_device, 1, 3, n_q, n_k, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernels_across_heads_and_scales(cuda_device):
+    """b x h = 6 heads of 4098 rows (each head's last tile reads past its
+    rows: zeros, never the next head's), then a negative and a zero
+    scale, which flash_forward_cuda folds into q."""
+    _check_flash_kernels(cuda_device, 2, 3, 4098, 4098, torch.float32)
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 3, 300, 389, seed=4,
+                               dtype=torch.float32)
+    for scale in (-0.125, 0.0):
+        o, lse = flash_forward_cuda(q, k, v, scale)
+        torch.cuda.synchronize()
+        o_p, lse_p = flash_forward_plain(q, k, v, scale)
+        assert _within(o, o_p, 2e-5)
+        assert float((lse - lse_p).abs().max()) <= 2e-5 * float(
+            lse_p.abs().max())
 
 
 @pytest.mark.cuda
@@ -574,6 +645,32 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
         assert _within(got, want, 2e-2)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(*[t[..., :32].contiguous() for t in (q, k, v)], 0.125)
+
+
+@pytest.mark.cuda
+def test_flash_f32_autograd_matches_dense(cuda_device):
+    """The autograd function on float32 inputs launches the three float32
+    kernels once each (and no bf16 one) and matches autograd through the
+    dense form in float32 within 1e-4 of each max; mixed dtypes raise."""
+    q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1,
+                                dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    cuda_lib.reset_launch_counts()
+    out = flash_attention(*leaves, 0.125)
+    grads = torch.autograd.grad(out, leaves, do)
+    counts = {n: c for n, c in cuda_lib.launch_counts.items()
+              if n.startswith("flash")}
+    assert counts == {"flash_forward": 0, "flash_backward_dkv": 0,
+                      "flash_backward_dq": 0, "flash_f32_forward": 1,
+                      "flash_f32_backward_dkv": 1, "flash_f32_backward_dq": 1}
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = _dense(*ref_leaves, 0.125)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+    assert _within(out, ref, 1e-4)
+    for got, want in zip(grads, ref_grads):
+        assert _within(got, want, 1e-4)
+    with pytest.raises(ValueError, match="as q"):
+        flash_attention(q, k.to(torch.bfloat16), v, 0.125)
 
 
 @pytest.mark.cuda

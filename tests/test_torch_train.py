@@ -28,7 +28,7 @@ from spfsplatv2_tpu.training import step as jstep
 from spfsplatv2_tpu_torch.losses import lpips, reproj
 from spfsplatv2_tpu_torch.losses.mse import mse_loss
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig
-from spfsplatv2_tpu_torch.ops import cuda_lib
+from spfsplatv2_tpu_torch.ops import attention, cuda_lib
 from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig
 from spfsplatv2_tpu_torch.training import optim, step
 from spfsplatv2_tpu_torch.utils.from_flax import flax_to_state_dict
@@ -212,6 +212,20 @@ def _jax_losses(setup, batch, backend):
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
 
 
+@pytest.fixture(scope="module")
+def jax_losses(setup):
+    """JAX's losses and gradients on the setup's batch and weights,
+    computed once a rasterizer backend."""
+    cache = {}
+
+    def get(backend):
+        if backend not in cache:
+            cache[backend] = _jax_losses(setup, setup[0], backend)
+        return cache[backend]
+
+    return get
+
+
 def _port_grads(setup, batch, remat=True, microbatch=None):
     """One port step's accumulated gradients and metrics (no update)."""
     _, _, params, _, tlp = setup
@@ -240,9 +254,10 @@ def _port_grads(setup, batch, remat=True, microbatch=None):
 # 0.7e-3 to 2.2e-3 x max from JAX's own oracle over four seeds, where the
 # port sits within 1.1e-5 of it (ROADMAP.md section 3).
 @pytest.mark.parametrize("backend,tol", [("pallas", 2e-3), ("reference", 1e-4)])
-def test_train_step_losses_and_grads_match_jax(setup, backend, tol):
+def test_train_step_losses_and_grads_match_jax(setup, jax_losses, backend,
+                                               tol):
     batch = setup[0]
-    (jtotal, jmetrics), jgrads = _jax_losses(setup, batch, backend)
+    (jtotal, jmetrics), jgrads = jax_losses(backend)
     cuda_lib.reset_launch_counts()
     tgrads, tmetrics = _port_grads(setup, batch)
     assert all(v == 0 for v in cuda_lib.launch_counts.values())
@@ -260,6 +275,34 @@ def test_train_step_losses_and_grads_match_jax(setup, backend, tol):
         np.testing.assert_allclose(got.numpy(), ref.numpy(),
                                    atol=tol * scale + 1e-12, err_msg=name)
     assert max(float(g.abs().max()) for g in tgrads.values()) > 0
+
+
+def test_train_step_flash_branch_matches_jax(setup, jax_losses, monkeypatch):
+    """The tiny float32 encoder's train step with `FLASH_MIN_KV` lowered
+    to 1, so that every self-attention takes `sdpa`'s flash branch (K5's
+    path; on CPU tensors its plain version): 6 a forward (2 encoder and
+    2 + 2 decoder blocks), twice under remat.  Loss and gradients against
+    JAX's train step at the same weights (its dense oracle rasterizer),
+    within 1e-4 of each max."""
+    (_, jmetrics), jgrads = jax_losses("reference")
+    calls = []
+    inner = attention.flash_attention
+
+    def counting(q, k, v, scale):
+        calls.append(q.dtype)
+        return inner(q, k, v, scale)
+
+    monkeypatch.setattr(attention, "FLASH_MIN_KV", 1)
+    monkeypatch.setattr(attention, "flash_attention", counting)
+    tgrads, tmetrics = _port_grads(setup, setup[0])
+    assert calls == [torch.float32] * 12
+    for key, ref in jmetrics.items():
+        np.testing.assert_allclose(tmetrics[key], float(ref), rtol=1e-4,
+                                   atol=1e-7, err_msg=key)
+    for name, ref in flax_to_state_dict(jgrads).items():
+        scale = float(ref.abs().max())
+        np.testing.assert_allclose(tgrads[name].numpy(), ref.numpy(),
+                                   atol=1e-4 * scale + 1e-12, err_msg=name)
 
 
 def test_microbatch_and_remat_match_full_batch(setup):

@@ -309,8 +309,10 @@ def test_encoder_bf16_matches_jax(encoders):
 
 def test_aggregator_names_k5_limits(monkeypatch):
     """The aggregator and DINOv2 raise before any computation when a
-    per-view self-attention would hand K5 float32 on CUDA tensors (here
-    pretended), reading FLASH_MIN_KV at call time as sdpa does."""
+    per-view self-attention would hand K5 on CUDA tensors (here
+    pretended) heads other than 64 wide or a dtype that no K5 kernel
+    takes (float16), reading FLASH_MIN_KV at call time as sdpa does; bf16
+    and float32 with 64-wide heads reach the computation."""
     from spfsplatv2_tpu_torch.models.vggt import dinov2 as tdino
 
     real = attention.flash_limits_violation
@@ -320,25 +322,29 @@ def test_aggregator_names_k5_limits(monkeypatch):
     k = torch.eye(3).expand(1, 2, 3, 3)
     cfg = dict(TINY_AGG, embed_dim=128)   # 64-wide heads
     dino = dict(TINY_DINO, embed_dim=128)
-    for dtype, min_kv, where in (("float32", 6, "AggregatorConfig"),
-                                 ("float32", 7, "DinoV2Config")):
+    # 2 x 2 patches: 8 frame tokens a view (intrinsics, camera, 2
+    # registers, 4 patches), 7 DINOv2 tokens (cls, 2 registers, 4).
+    for agg_over, dino_over, min_kv, where in (
+            ({"embed_dim": 64}, {}, 6, "AggregatorConfig"),     # 32-wide
+            ({"compute_dtype": "float16"}, {}, 8, "AggregatorConfig"),
+            ({}, {"embed_dim": 64}, 7, "DinoV2Config"),
+            ({}, {"compute_dtype": "float16"}, 7, "DinoV2Config")):
         model = aggregator.VGGTAggregator(aggregator.AggregatorConfig(
-            **{**cfg, "compute_dtype": dtype if where == "AggregatorConfig"
-               else "bfloat16"},
-            dinov2=dinov2.DinoV2Config(**dino)))
-        # 2 x 2 patches: 8 frame tokens a view (intrinsics, camera, 2
-        # registers, 4 patches), 7 DINOv2 tokens (cls, 2 registers, 4).
+            **{**cfg, **agg_over},
+            dinov2=dinov2.DinoV2Config(**{**dino, **dino_over})))
         monkeypatch.setattr(attention, "FLASH_MIN_KV", min_kv)
         with pytest.raises(ValueError, match=where) as err:
             model(img, k, num_target=1)
         assert "head dim 64" in str(err.value)
-    # bf16 everywhere takes K5; below the threshold nothing is checked.
-    monkeypatch.setattr(attention, "FLASH_MIN_KV", 8)
-    bf16 = {"compute_dtype": "bfloat16"}
-    model = aggregator.VGGTAggregator(aggregator.AggregatorConfig(
-        **{**cfg, **bf16}, dinov2=dinov2.DinoV2Config(**{**dino, **bf16})))
-    with torch.no_grad():
-        assert len(model(img, k, num_target=1)["tokens"]) == 2
+    # bf16 and float32 with 64-wide heads take K5 (dense here, on the
+    # CPU), as does everything below the threshold.
+    monkeypatch.setattr(attention, "FLASH_MIN_KV", 7)
+    for dtype in ("bfloat16", "float32"):
+        over = {"compute_dtype": dtype}
+        model = aggregator.VGGTAggregator(aggregator.AggregatorConfig(
+            **{**cfg, **over}, dinov2=dinov2.DinoV2Config(**{**dino, **over})))
+        with torch.no_grad():
+            assert len(model(img, k, num_target=1)["tokens"]) == 2
 
 
 # The reference module names of the port's parameters (the inverse of
