@@ -75,12 +75,17 @@ Phases, each printing JSON lines:
      versions, both kernels timed beside SDPA's backward;
      then the float32 long-context path, the same encoder with
      `CrocoBackboneConfig(compute_dtype="float32")` (the same seeded
-     weights): "K5_f32", K5's float32 kernels (csrc/flash_f32_forward.cu,
-     flash_f32_backward_dkv.cu, flash_f32_backward_dq.cu) at phase 10's
-     three shapes on seeded float32 inputs, O and lse within 2e-5 and dQ,
-     dK, dV within 1e-4 of max against their plain versions, the autograd
-     function against the dense form, timed beside their plain versions
-     and SDPA in float32 with their TFLOP/s beside the FP32 bound;
+     weights): "K5_f32", K5's float32 kernels (csrc/flash_f32_forward.cu
+     on FP32 FMAs; the backward pair flash_f32_backward_dkv.cu,
+     flash_f32_backward_dq.cu on 3xTF32 after the split pre-pass
+     flash_f32_split.cu) at phase 10's three shapes on seeded float32
+     inputs, O and lse within 2e-5 and dQ, dK, dV within 1e-4 of max
+     against their plain versions, the split bit for bit, each new kernel
+     launched twice with identical bits, the autograd function against
+     the dense form, timed beside their plain versions and SDPA in
+     float32 with their TFLOP/s beside their bounds (the forward's on
+     the FP32 units, the pair's 3 x its FLOPs at the TF32 rate, the FP32
+     bound printed beside it);
      "serving_1024_f32", 3 requests at 1024^2 through `evaluate_example`
      (48 float32 forward launches each, no bf16 K5 launch), encoder block
      12's real q, k, v through the float32 kernel against the plain
@@ -89,8 +94,8 @@ Phases, each printing JSON lines:
      with the microbatch `training/loop.py:fit_microbatch` picks (its
      probes' peaks recorded), launch counts read around exactly those
      steps, their first K2 launch held against its plain version; then
-     "K5_f32_train", the float32 backward pair at the shapes those steps
-     gave it;
+     "K5_f32_train", the float32 backward pair (and its split) at the
+     shapes those steps gave it, two launches bit-identical;
  14. the command line, `spfsplatv2_tpu_torch.main.main([...])` in process
      with `--config experiments/spfsplatv2/re10k.yaml` and overrides only
      (phases "cli_*"): synthetic train, val and test chunks written under
@@ -147,6 +152,10 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same source
 H100_BF16_PER_S = 989e12     # bf16 tensor cores, dense, same source
+H100_TF32_PER_S = 495e12     # TF32 tensor cores, dense, same source
+# K5's float32 backward pair runs each product as three TF32 products
+# (lo*hi + hi*lo + hi*hi): its bound is 3 x its FLOPs at the TF32 rate.
+K5_TF32_PASSES = 3
 # FP32 operations per (pixel, entry) pair in K1: an evaluated pair pays
 # dx, dy and the power (11), exp, scale and clamp (3); a blended pair adds
 # the transmittance test (2), its weight (1) and 4 accumulations (8).
@@ -414,11 +423,62 @@ def k5_kernels(attention, dtype) -> dict:
 
 
 def k5_bound_ms(torch, role: str, shape: tuple, dtype) -> float:
-    """A K5 kernel's least time at (b, h, n_q, n_k): its FLOPs on the bf16
-    tensor cores, or on the FP32 units for float32."""
+    """A K5 kernel's least time at (b, h, n_q, n_k), by kernel: its FLOPs
+    on the bf16 tensor cores; for float32, the forward's on the FP32
+    units, the backward pair's three times over at the TF32 rate."""
     b, h, n_q, n_k = shape
-    rate = H100_BF16_PER_S if dtype == torch.bfloat16 else H100_FP32_PER_S
-    return K5_FLOPS[role] * b * h * n_q * n_k * 64 / rate * 1e3
+    flops = K5_FLOPS[role] * b * h * n_q * n_k * 64
+    if dtype == torch.bfloat16:
+        return flops / H100_BF16_PER_S * 1e3
+    if role == "forward":
+        return flops / H100_FP32_PER_S * 1e3
+    return K5_TF32_PASSES * flops / H100_TF32_PER_S * 1e3
+
+
+def k5_fma_bound_ms(role: str, shape: tuple) -> float:
+    """The same FLOPs on the FP32 units (67 TFLOP/s): the float32 pair's
+    bound before its products moved to the tensor cores."""
+    b, h, n_q, n_k = shape
+    return K5_FLOPS[role] * b * h * n_q * n_k * 64 / H100_FP32_PER_S * 1e3
+
+
+def split_bytes(shape: tuple) -> int:
+    """The split pre-pass's bytes: q, k, v, dO read once; their hi and lo
+    planes as they lie (8) and those of q, k, dO transposed, n padded to
+    a multiple of 8 (6), written once."""
+    b, h, n_q, n_k = shape
+    n8_q, n8_k = -(-n_q // 8) * 8, -(-n_k // 8) * 8
+    rows = 2 * (n_q + n_k) * 3 + 2 * (2 * n8_q + n8_k)
+    return b * h * 64 * 4 * rows
+
+
+def f32_split_check(torch, attention, q, k, v, do, where: str) -> dict:
+    """The split pre-pass twice on the same inputs against its plain
+    version: all bit-identical, or fail."""
+    first = attention.flash_f32_split_cuda(q, k, v, do)
+    second = attention.flash_f32_split_cuda(q, k, v, do)
+    torch.cuda.synchronize()
+    plain = attention.flash_f32_split_plain(q, k, v, do)
+    for name, want in plain.items():
+        if not (torch.equal(first[name], want)
+                and torch.equal(second[name], want)):
+            fail(f"K5 float32 split {where} {name}: not bit-identical to "
+                 "its plain version in two launches")
+    return first
+
+
+def pair_twice(torch, attention, args, split, where: str) -> tuple:
+    """The float32 backward pair launched twice on the same inputs; fail
+    unless the two give identical bits.  Returns (dk, dv, dq)."""
+    runs = [(*attention.flash_backward_dkv_cuda(*args, split=split),
+             attention.flash_backward_dq_cuda(*args, split=split))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dk", "dv", "dq"), *runs):
+        if not torch.equal(a, b_):
+            fail(f"K5 float32 {where}: two launches of the {name} kernel "
+                 "differ")
+    return runs[0]
 
 
 def k5_inputs(torch, attention, shape: tuple, gen, dev, dtype) -> tuple:
@@ -439,8 +499,10 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
              dtype) -> dict:
     """K5's three kernels of `dtype` against their plain versions, and the
     autograd function against autograd through the float32 dense form,
-    at one path shape with seeded inputs and cotangent; then their times
-    beside the plain versions and SDPA's in the same dtype."""
+    at one path shape with seeded inputs and cotangent (float32: the
+    split pre-pass bit for bit against its plain version, and each new
+    kernel launched twice with identical bits); then their times beside
+    the plain versions and SDPA's in the same dtype."""
     import torch.nn.functional as F
 
     b, h, n_q, n_k = shape
@@ -449,8 +511,15 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
     names = k5_kernels(attention, dtype)
     q, k, v, do, o, lse, di = k5_inputs(torch, attention, shape, gen, dev,
                                         dtype)
-    dk, dv = attention.flash_backward_dkv_cuda(q, k, v, do, lse, di, scale)
-    dq = attention.flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
+    split = None
+    if dtype == torch.float32:
+        split = f32_split_check(torch, attention, q, k, v, do, name)
+        dk, dv, dq = pair_twice(torch, attention,
+                                (q, k, v, do, lse, di, scale), split, name)
+    else:
+        dk, dv = attention.flash_backward_dkv_cuda(q, k, v, do, lse, di,
+                                                   scale)
+        dq = attention.flash_backward_dq_cuda(q, k, v, do, lse, di, scale)
     torch.cuda.synchronize()
     o_p, lse_p = attention.flash_forward_plain(q, k, v, scale)
     dk_p, dv_p = attention.flash_backward_dkv_plain(q, k, v, do, lse, di, scale)
@@ -498,13 +567,13 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
             "library_ms": time_ms(torch, lambda: sdpa(q, k, v, scale), iters)},
         "backward_dkv": {
             "ms": time_ms(torch, lambda: attention.flash_backward_dkv_cuda(
-                *bwd_args), iters // 2),
+                *bwd_args, split=split), iters // 2),
             "plain_ms": time_ms(torch, lambda: attention.
                                 flash_backward_dkv_plain(*bwd_args), 3,
                                 warmup=1)},
         "backward_dq": {
             "ms": time_ms(torch, lambda: attention.flash_backward_dq_cuda(
-                *bwd_args), iters // 2),
+                *bwd_args, split=split), iters // 2),
             "plain_ms": time_ms(torch, lambda: attention.
                                 flash_backward_dq_plain(*bwd_args), 3,
                                 warmup=1)},
@@ -520,6 +589,14 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
         t["bound_by"] = "operations"
         t["tflops"] = K5_FLOPS[role] * b * h * n_q * n_k * 64 / t["ms"] / 1e9
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        if dtype == torch.float32:
+            t["fp32_fma_bound_ms"] = k5_fma_bound_ms(role, shape)
+    kernels = {names[role]: t for role, t in times.items()}
+    if dtype == torch.float32:
+        kernels["flash_f32_split"] = split_times(torch, attention, shape,
+                                                 (q, k, v, do))
+    pair_ms = sum(kernels[n]["ms"] for n in kernels
+                  if n != names["forward"])
     times["forward"]["ex2_bound_ms"] = b * h * n_q * n_k / H100_EX2_PER_S * 1e3
     times["forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
     times["backward_dkv"]["max_abs_err"] = max(
@@ -531,16 +608,32 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
         "plain": time_ms(torch, fwd_bwd(attention._dense), 3, warmup=1),
         "sdpa": time_ms(torch, fwd_bwd(sdpa), fb_iters)}
     return {"shape": list(shape), "dtype": str(dtype), "vs_plain": checks,
-            "vs_dense_f32_autograd": dense,
-            "kernels": {names[role]: t for role, t in times.items()},
+            "vs_dense_f32_autograd": dense, "kernels": kernels,
+            "backward_pair_ms": pair_ms, "sdpa_backward_ms": sdpa_bwd,
             "fwd_bwd_ms": fwd_bwd_ms}
+
+
+def split_times(torch, attention, shape: tuple, inputs: tuple) -> dict:
+    """The split pre-pass's entry: its time beside its byte bound and its
+    plain version's (no one PyTorch call computes it; the pair's times
+    with it stand beside SDPA's backward); bit-identical to the plain
+    version where `f32_split_check` ran."""
+    ms = time_ms(torch, lambda: attention.flash_f32_split_cuda(*inputs), 10)
+    bound = split_bytes(shape) / H100_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": time_ms(
+        torch, lambda: attention.flash_f32_split_plain(*inputs), 3,
+        warmup=1), "bound_ms": bound, "bound_by": "bytes",
+        "bound_share": bound / ms, "library_ms": None, "max_abs_err": 0.0}
 
 
 def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     """K5's backward pair of `dtype` at one shape that a 1024^2 train
     step's autograd gave it, on seeded inputs: the first batch element
     held against the plain versions (the whole batch's float32 logits
-    would take tens of GB), both kernels timed beside SDPA's backward."""
+    would take tens of GB), both kernels timed beside SDPA's backward;
+    float32: the split pre-pass and each kernel launched twice with
+    identical bits (the split also bit for bit against its plain
+    version), the split timed beside its byte bound."""
     import torch.nn.functional as F
 
     b, h, n_q, n_k = shape
@@ -550,8 +643,15 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     q, k, v, do, _, lse, di = k5_inputs(torch, attention, shape, gen, dev,
                                         dtype)
     args = (q, k, v, do, lse, di, scale)
-    dk, dv = attention.flash_backward_dkv_cuda(*args)
-    dq = attention.flash_backward_dq_cuda(*args)
+    split = None
+    if dtype == torch.float32:
+        split = f32_split_check(torch, attention, q, k, v, do,
+                                f"train shape {shape}")
+        dk, dv, dq = pair_twice(torch, attention, args, split,
+                                f"train shape {shape}")
+    else:
+        dk, dv = attention.flash_backward_dkv_cuda(*args)
+        dq = attention.flash_backward_dq_cuda(*args)
     torch.cuda.synchronize()
     first = [x[:1] for x in args[:6]] + [scale]
     dk_p, dv_p = attention.flash_backward_dkv_plain(*first)
@@ -570,11 +670,18 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     kernels = {}
     for role in ("backward_dkv", "backward_dq"):
         fn = getattr(attention, f"flash_{role}_cuda")
-        ms = time_ms(torch, lambda fn=fn: fn(*args), iters)
+        ms = time_ms(torch, lambda fn=fn: fn(*args, split=split), iters)
+        bound = k5_bound_ms(torch, role, shape, dtype)
         kernels[names[role]] = {
             "ms": ms, "tflops": K5_FLOPS[role] * b * h * n_q * n_k * 64 / ms
-            / 1e9, "bound_ms": k5_bound_ms(torch, role, shape, dtype),
-            "bound_by": "operations", "library_ms": sdpa_bwd}
+            / 1e9, "bound_ms": bound, "bound_by": "operations",
+            "bound_share": bound / ms, "library_ms": sdpa_bwd}
+        if dtype == torch.float32:
+            kernels[names[role]]["fp32_fma_bound_ms"] = k5_fma_bound_ms(
+                role, shape)
+    if dtype == torch.float32:
+        kernels["flash_f32_split"] = split_times(torch, attention, shape,
+                                                 (q, k, v, do))
     return {"shape": list(shape), "dtype": str(dtype),
             "vs_plain_first_batch": checks, "kernels": kernels,
             "pair_ms": sum(t["ms"] for t in kernels.values()),
@@ -920,6 +1027,7 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
     passes = len(batches) * (LONG_BATCH // microbatch)
     want = {k: 0 for k in train_counts}
     want.update(flash_f32_forward=2 * K5_PER_PASS * passes,
+                flash_f32_split=K5_PER_PASS * passes,
                 flash_f32_backward_dkv=K5_PER_PASS * passes,
                 flash_f32_backward_dq=K5_PER_PASS * passes,
                 composite_forward=len(batches) * LONG_BATCH,
@@ -2183,6 +2291,23 @@ def main() -> int:
                     {"shape": list(shape), **res["kernels"][name]}
                     for shape, res in train_results.items()]
             entries.append(entry)
+        if dtype == torch.float32:
+            name = "flash_f32_split"
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"spfsplatv2_tpu_torch/csrc/{name}.cu",
+                "replaces": "jax/experimental/pallas/ops/tpu/"
+                            "flash_attention.py:796",
+                "note": "the 3xTF32 backward pair's pre-pass (hi and lo "
+                        "tf32 planes, transposed operands); part of the "
+                        "port of the dK/dV (:796) and dQ (:1146) kernels",
+                "launches": train[name], "launches_by_path": by_path(name),
+                **results["encoder"]["kernels"][name],
+                "shape": results["encoder"]["shape"], "dtype": str(dtype),
+                "check": "bit-identical to its plain version, two launches",
+                "at_train_shapes": [
+                    {"shape": list(shape), **res["kernels"][name]}
+                    for shape, res in train_results.items()]})
         return entries
 
     emit({"kernels": [

@@ -1,20 +1,27 @@
-// The building blocks of K5's float32 kernels (flash_f32_forward.cu,
-// flash_f32_backward_dkv.cu, flash_f32_backward_dq.cu): 64-row tiles of
-// (n, 64) float32 matrices in shared memory and the three kinds of
-// 64 x 64 x 64 product they take, each thread holding a 4 x 4 register
-// micro-tile of the result and running plain FP32 FMAs (no TF32: the
-// port runs float32 without it, and a TF32 product would move the
-// results by ~1e-3).
+// The building blocks of K5's float32 forward (flash_f32_forward.cu):
+// 64-row tiles of (n, 64) float32 matrices in shared memory and the two
+// kinds of 64 x 64 x 64 product it takes, each thread holding a 4 x 4
+// register micro-tile of the result and running plain FP32 FMAs.
+//
+// Why not one TF32 pass on the tensor cores: tf32 keeps 10 of float32's
+// 23 mantissa bits, and one pass would move a 64-term product by ~1e-3 of
+// its size, a divergence from float32 that the port does not take.  Three
+// passes do not have that cost: with x = hi + lo (hi = tf32(x), lo =
+// tf32(x - hi)), lo*hi + hi*lo + hi*hi drops only lo*lo (~2^-22) and
+// keeps float32 accuracy at a third of the TF32 rate (165 TFLOP/s, 2.5x
+// the FMA rate).  The backward pair runs that way on wgmma
+// (flash_f32_backward_{dkv,dq}.cu, flash_sm90.cuh); this forward is
+// still on FMAs (later work).
 //
 // A CTA is 256 threads, thread t = (ty, tx) = (t / 16, t % 16).  Its
 // micro-tile takes rows ty*4 .. ty*4+3 of the result; the columns are
 // tx + 16 j (j < 4) for a product whose columns are rows of the second
 // operand (S = A B^T), tx*4 .. tx*4+3 for one whose columns run along
-// its rows (C = A B, C = A^T B).  Every shared read is a float4: the 8
-// threads of a quarter warp share ty, so the first operand's reads are
-// broadcasts, and the second operand's are 8 distinct rows (padded to
-// kStride = 68 floats, which puts 8 consecutive rows' 16-byte pieces in
-// 8 distinct bank groups) or 128 contiguous bytes.
+// its rows (C = A B).  Every shared read is a float4: the 8 threads of a
+// quarter warp share ty, so the first operand's reads are broadcasts,
+// and the second operand's are 8 distinct rows (padded to kStride = 68
+// floats, which puts 8 consecutive rows' 16-byte pieces in 8 distinct
+// bank groups) or 128 contiguous bytes.
 
 #pragma once
 
@@ -111,23 +118,6 @@ __device__ __forceinline__ void product_ab(const float* a, const float* b,
   }
 }
 
-// acc[i][j] += sum_q A[q][ty*4+i] * B[q][tx*4+j]   (C = A^T B)
-__device__ __forceinline__ void product_atb(const float* a, const float* b,
-                                            float (&acc)[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* ac = a + ty * 4;
-  const float* bc = b + tx * 4;
-#pragma unroll 8
-  for (int q = 0; q < kTile; ++q) {
-    const float4 av = ld4(ac + q * kStride);
-    const float4 bv = ld4(bc + q * kStride);
-    fma_row(acc[0], av.x, bv);
-    fma_row(acc[1], av.y, bv);
-    fma_row(acc[2], av.z, bv);
-    fma_row(acc[3], av.w, bv);
-  }
-}
-
 // Rows ty*4 .. ty*4+3 of a 4 x 4 micro-tile with columns tx*4 .. tx*4+3,
 // times `scale`, into a row-major (n, 64) matrix; rows at or past n are
 // not stored.
@@ -142,19 +132,6 @@ __device__ __forceinline__ void store_rows(float* g, int row0, int n,
       st4(g + (size_t)r * kD + tx * 4,
           make_float4(acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale,
                       acc[i][3] * scale));
-  }
-}
-
-// Each of the tile's 64 query rows' log-sum-exp in log2 units and di;
-// rows at or past n_q get lse = +inf (P = 0 there) and di = 0.
-__device__ __forceinline__ void load_row_stats(float* lse2, float* di,
-                                               const float* lse_g,
-                                               const float* di_g, int row0,
-                                               int n_q) {
-  if (threadIdx.x < kTile) {
-    const int r = row0 + threadIdx.x;
-    lse2[threadIdx.x] = r < n_q ? lse_g[r] * kLog2e : INFINITY;
-    di[threadIdx.x] = r < n_q ? di_g[r] : 0.f;
   }
 }
 

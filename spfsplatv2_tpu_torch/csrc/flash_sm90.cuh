@@ -1,9 +1,12 @@
-// Hopper building blocks shared by K5's three kernels (flash_forward.cu,
-// flash_backward_dkv.cu, flash_backward_dq.cu) and the check of their
-// products (wgmma_check.cu): TMA tile loads into 128-byte-swizzled shared
-// memory through tensor maps, mbarriers, named barriers, and wgmma
-// m64n64k16 / m64n128k16 (bf16 in, f32 accumulate) with B, and optionally
-// A, read from shared memory.
+// Hopper building blocks shared by K5's three bf16 kernels
+// (flash_forward.cu, flash_backward_dkv.cu, flash_backward_dq.cu), its
+// float32 backward pair (flash_f32_backward_{dkv,dq}.cu) and the checks
+// of their products (wgmma_check.cu, wgmma_tf32_check.cu): TMA tile loads
+// into 128-byte-swizzled shared memory through tensor maps, mbarriers,
+// named barriers, wgmma m64n64k16 / m64n128k16 (bf16 in, f32 accumulate)
+// with B, and optionally A, read from shared memory, and, at the end of
+// the file, wgmma m64n32k8 / m64n64k8 on tf32 in three passes (3xTF32),
+// A from shared memory or registers.
 //
 // Tiles.  Every operand is a (n, 64) bf16 row-major matrix of one
 // (batch, head) pair, and a 64-wide bf16 row is 128 B.  TMA copies a box
@@ -182,18 +185,25 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// One box of a 3-D map at (0, row, head) into shared memory at dst,
+// One box of a 3-D map at (x, y, z) into shared memory at dst,
 // completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load_box(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             uint32_t bar, int x, int y,
+                                             int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// The box of a (64, n, bh) bf16 map at (0, row, head).
 __device__ __forceinline__ void tma_load_tile(uint32_t dst,
                                               const CUtensorMap* map,
                                               uint32_t bar, int row,
                                               int head) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
-      "r"(head)
-      : "memory");
+  tma_load_box(dst, map, bar, 0, row, head);
 }
 
 // One box of a 1-D map at element `at`.
@@ -397,6 +407,206 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
                                            int row, int n, float scale) {
   const float both[2] = {scale, scale};
   store_rows(out, d, row, n, both);
+}
+
+// ---- float32 on the tensor cores: 3xTF32 -----------------------------
+//
+// K5's float32 backward kernels (flash_f32_backward_{dkv,dq}.cu) run
+// every product on wgmma m64nNk8 with tf32 operands in three passes:
+// each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna, round to nearest, ties away from zero), and a product is
+// lo*hi + hi*lo + hi*hi, summed in float32 in that order (the small terms
+// first).  One pass keeps 10 of float32's 23 mantissa bits and moves a
+// 64-term product by ~1e-3 of its size; three passes drop only lo*lo
+// (~2^-22), within float32's own rounding of the sums.
+//
+// tf32 takes no transpose bit: both operands are K-major.  A float32 row
+// of 64 is 256 B, two 128-byte swizzle spans, so a 64-column tile lies as
+// two column halves of 32 floats (one TMA box each); the k8 steps advance
+// 32 B inside a half, four to a half, then move to the other half.
+// f32_map below gives such boxes; the hi and lo planes of a tensor are
+// one map whose third axis is plane * bh + head.
+//
+// Fragments (PTX ISA, wgmma .m64nNk8 with .tf32): for lane (g = lane / 4,
+// t = lane % 4) of warp w, the A fragment of one k8 step holds rows
+// 16w + g and 16w + g + 8 at columns t and t + 4 (a0 = [g][t],
+// a1 = [g+8][t], a2 = [g][t+4], a3 = [g+8][t+4]), while an accumulator
+// holds columns 2t and 2t + 1.  So an accumulator's 8-column block j
+// becomes one k8 step's A fragment as it lies (`acc_to_a3`: a0 = d[4j],
+// a1 = d[4j+2], a2 = d[4j+1], a3 = d[4j+3]) if the product's k axis is
+// permuted inside each group of 8: k step position L holds column
+// c(L) = 2L for L < 4 and 2(L - 4) + 1 for L >= 4.  The same permutation
+// applies to the B tile's k axis; the split pre-pass
+// (flash_f32_split.cu) writes the transposed B operands that way.
+
+// A float32 tensor (depth, rows, inner) as a 3-D map over (inner, rows,
+// depth), boxes of box_rows rows x 32 floats (one 128-byte swizzle span)
+// with the 128-byte swizzle; out-of-range elements read as zero.  inner
+// must be a multiple of 4 (16-byte row stride).
+inline bool f32_map(CUtensorMap* map, const void* base, int inner, int rows,
+                    int depth, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 4,
+                                 (cuuint64_t)inner * rows * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// hi = tf32(x), lo = tf32(x - hi); x - hi is exact in float32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+#define SM90_D16(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+#define SM90_D16_LIST \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32) = A B (+ d if accumulate), one k8 step, tf32 A and B from
+// shared memory (both K-major).
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SM90_D16_LIST
+      ", %16, %17, p, 1, 1;\n}\n"
+      : SM90_D16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) = A B (+ d if accumulate), one k8 step, tf32 A from
+// registers and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SM90_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32) = A B (+ d if accumulate), one k8 step, tf32 A from
+// registers and B from shared memory (K-major): the m64n32k8 form.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SM90_D16_LIST
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SM90_D16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32) = A B^T over k = 64 in three passes, A as 8 k8 fragments
+// (hi, lo) in registers, B (32 rows) a K-major tile of 64 floats a row
+// given by its hi and lo planes, a column half b_half bytes after the
+// first.
+__device__ __forceinline__ void product3_rs32(float (&d)[16],
+                                              const uint32_t (&a_hi)[8][4],
+                                              const uint32_t (&a_lo)[8][4],
+                                              uint32_t b_hi, uint32_t b_lo,
+                                              uint32_t b_half) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_tf32_rs(d, pass == 0 ? a_lo[kk] : a_hi[kk],
+                    desc_k((pass == 1 ? b_lo : b_hi) + (kk >> 2) * b_half,
+                           kk & 3),
+                    pass > 0 || kk > 0);
+}
+
+// d (64 x 32) = A B^T over k = 64 in three passes.  A (64 rows) and B
+// (32 rows) are K-major tiles of 64 floats a row, each given by its hi and
+// lo planes; a column half (32 floats) of A's planes lies a_half bytes
+// after the first, of B's b_half bytes.
+__device__ __forceinline__ void product3_ss(float (&d)[16], uint32_t a_hi,
+                                            uint32_t a_lo, uint32_t a_half,
+                                            uint32_t b_hi, uint32_t b_lo,
+                                            uint32_t b_half) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t a = pass == 0 ? a_lo : a_hi;
+    const uint32_t b = pass == 1 ? b_lo : b_hi;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_tf32_ss(d, desc_k(a + (kk >> 2) * a_half, kk & 3),
+                    desc_k(b + (kk >> 2) * b_half, kk & 3),
+                    pass > 0 || kk > 0);
+  }
+}
+
+// d (64 x 64) (+)= A B over k = 8K <= 32 in three passes, A as K k8
+// fragments (hi, lo) in registers, B a K-major tile of 64 rows of 8K
+// floats (one swizzle span) given by its hi and lo planes.  accumulate = 0
+// starts d from the first pass's product.
+template <int K>
+__device__ __forceinline__ void product3_rs(float (&d)[32],
+                                            const uint32_t (&a_hi)[K][4],
+                                            const uint32_t (&a_lo)[K][4],
+                                            uint32_t b_hi, uint32_t b_lo,
+                                            int accumulate) {
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk)
+      wgmma_tf32_rs(d, pass == 0 ? a_lo[kk] : a_hi[kk],
+                    desc_k(pass == 1 ? b_lo : b_hi, kk),
+                    accumulate || pass > 0 || kk > 0);
+}
+
+// A 64 x 8K f32 accumulator as K k8 A fragments (hi, lo), the k axis
+// permuted inside each group of 8 as above.
+template <int K>
+__device__ __forceinline__ void acc_to_a3(uint32_t (&hi)[K][4],
+                                          uint32_t (&lo)[K][4],
+                                          const float (&d)[4 * K]) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    split_tf32(d[4 * j + 0], hi[j][0], lo[j][0]);
+    split_tf32(d[4 * j + 2], hi[j][1], lo[j][1]);
+    split_tf32(d[4 * j + 1], hi[j][2], lo[j][2]);
+    split_tf32(d[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+}
+
+// This thread's rows (row, row + 8) of a 64 x 64 f32 accumulator, times
+// scale, into a (n, 64) float32 matrix; rows at or past n are not written.
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&d)[32], int row,
+                                               int n, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= n) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<float2*>(out + (size_t)r * kD + 8 * j + 2 * t) =
+          make_float2(d[4 * j + 2 * h] * scale, d[4 * j + 2 * h + 1] * scale);
+  }
 }
 
 }  // namespace sm90

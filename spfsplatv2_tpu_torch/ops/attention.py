@@ -9,10 +9,11 @@ three hand-written kernels behind a `torch.autograd.Function`, picked by
 the inputs' dtype (bf16: `csrc/flash_forward.cu`,
 `csrc/flash_backward_dkv.cu`, `csrc/flash_backward_dq.cu`; float32:
 `csrc/flash_f32_forward.cu`, `csrc/flash_f32_backward_dkv.cu`,
-`csrc/flash_f32_backward_dq.cu`); on CPU tensors their plain version, the
-dense form.  The view-masked attention stays dense below `chunked_min_kv`
-keys and is computed in query chunks above it, as in JAX (no kernel
-there).
+`csrc/flash_f32_backward_dq.cu`, the backward pair on 3xTF32 after the
+split pre-pass `csrc/flash_f32_split.cu`); on CPU tensors their plain
+version, the dense form.  The view-masked attention stays dense below
+`chunked_min_kv` keys and is computed in query chunks above it, as in
+JAX (no kernel there).
 """
 
 from __future__ import annotations
@@ -184,15 +185,114 @@ def _check_backward_inputs(q, k, v, do, lse, di) -> int:
     return bh
 
 
-def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale):
+# The split pre-pass of K5's float32 backward (`csrc/flash_f32_split.cu`):
+# the products of the float32 backward pair run on the tensor cores as
+# 3xTF32, with each operand split into hi = tf32(x) and lo = tf32(x - hi).
+# Transposed operands have their n axis permuted inside each group of 8:
+# position L holds row TF32_K_ORDER[L], the order in which a tf32
+# accumulator's columns make up the next product's A fragment.
+TF32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+F32_SPLIT_AS_LAID = ("q", "k", "v", "do")
+F32_SPLIT_TRANSPOSED = ("q", "k", "do")
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 as `cvt.rna.tf32.f32` does: to the nearest
+    value with 10 mantissa bits, ties away from zero (half an ulp added to
+    the magnitude's bits, the low 13 bits cleared); finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_hl(x: torch.Tensor) -> torch.Tensor:
+    """(2, ...) hi = tf32(x), lo = tf32(x - hi) (x - hi is exact)."""
+    hi = tf32_round(x)
+    return torch.stack((hi, tf32_round(x - hi)))
+
+
+def _transposed_order(n: int, device) -> torch.Tensor:
+    """The rows of x that the n8 = 8 * ceil(n / 8) positions of a
+    transposed plane hold, in TF32_K_ORDER inside each group of 8."""
+    n8 = -(-n // 8) * 8
+    order = torch.tensor(TF32_K_ORDER, device=device)
+    return (torch.arange(0, n8, 8, device=device)[:, None] + order).reshape(-1)
+
+
+def flash_f32_split_plain(q, k, v, do) -> dict:
+    """The plain version of the split pre-pass on (b, h, n, 64) float32:
+    `<name>_hl` (2, b*h, n, 64), the hi and lo planes of q, k, v and dO as
+    they lie; `<name>_t` (2, b*h, 64, n8), those of q, k and dO
+    transposed, padded with zero rows to n8 and permuted (TF32_K_ORDER).
+    Bit for bit what the kernel writes."""
+    out = {}
+    for name, x in zip(F32_SPLIT_AS_LAID, (q, k, v, do)):
+        b, h, n, d = x.shape
+        hl = _split_hl(x.reshape(b * h, n, d).float())
+        out[f"{name}_hl"] = hl
+        if name in F32_SPLIT_TRANSPOSED:
+            order = _transposed_order(n, x.device)
+            padded = torch.nn.functional.pad(hl, (0, 0, 0, len(order) - n))
+            out[f"{name}_t"] = padded[:, :, order].transpose(2, 3).contiguous()
+    return out
+
+
+def flash_f32_split_cuda(q, k, v, do) -> dict:
+    """Launch the split pre-pass on contiguous (b, h, n, 64) float32 CUDA
+    tensors; returns the planes of `flash_f32_split_plain`."""
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    _require_cuda(tensors)
+    n_q, n_k = q.shape[2], k.shape[2]
+    bh = _check_flash_inputs(tensors, n_q, n_k)
+    if q.dtype != torch.float32:
+        raise ValueError(f"the split pre-pass takes float32, got {q.dtype}")
+    out = {f"{name}_hl": torch.empty((2, bh, x.shape[2], HEAD_DIM),
+                                     dtype=torch.float32, device=q.device)
+           for name, x in tensors.items()}
+    for name in F32_SPLIT_TRANSPOSED:
+        n8 = -(-tensors[name].shape[2] // 8) * 8
+        out[f"{name}_t"] = torch.empty((2, bh, HEAD_DIM, n8),
+                                       dtype=torch.float32, device=q.device)
+    name = "flash_f32_split"
+    err = cuda_lib.library(name).spf_flash_f32_split(
+        *(t.data_ptr() for t in (q, k, v, do)),
+        *(out[f"{n}_hl"].data_ptr() for n in F32_SPLIT_AS_LAID),
+        *(out[f"{n}_t"].data_ptr() for n in F32_SPLIT_TRANSPOSED),
+        bh, n_q, n_k, cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.check(err, name)
+    return out
+
+
+def _f32_split(q, k, v, do, split):
+    """The split planes for the float32 backward kernels: `split` when the
+    caller ran the pre-pass (the autograd function runs it once for both
+    kernels), else a launch of it here."""
+    if split is None:
+        return flash_f32_split_cuda(q, k, v, do)
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        want = (2, x.shape[0] * x.shape[1], x.shape[2], HEAD_DIM)
+        _require_f32(split[f"{name}_hl"], f"{name}_hl", want, x.device)
+    for name, x in (("q", q), ("k", k), ("do", do)):
+        want = (2, x.shape[0] * x.shape[1], HEAD_DIM, -(-x.shape[2] // 8) * 8)
+        _require_f32(split[f"{name}_t"], f"{name}_t", want, x.device)
+    return split
+
+
+def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale, split=None):
     """Launch K5's dK/dV kernel of the inputs' dtype; returns (dk, dv) in
-    that dtype."""
+    that dtype.  float32 reads the split pre-pass's planes: `split` from
+    `flash_f32_split_cuda` on the same inputs, or None to run it here."""
     bh = _check_backward_inputs(q, k, v, do, lse, di)
     name = FLASH_KERNELS[q.dtype][1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.float32:
+        sp = _f32_split(q, k, v, do, split)
+        ins = [sp[n].data_ptr() for n in ("q_hl", "k_hl", "v_hl", "do_hl",
+                                          "q_t", "do_t")]
+    else:
+        ins = [t.data_ptr() for t in (q, k, v, do)]
     err = getattr(cuda_lib.library(name), f"spf_{name}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *ins, lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bh, q.shape[2], k.shape[2], float(scale),
         cuda_lib.stream_handle(q.device))
     cuda_lib.launch_counts[name] += 1
@@ -200,15 +300,20 @@ def flash_backward_dkv_cuda(q, k, v, do, lse, di, scale):
     return dk, dv
 
 
-def flash_backward_dq_cuda(q, k, v, do, lse, di, scale):
+def flash_backward_dq_cuda(q, k, v, do, lse, di, scale, split=None):
     """Launch K5's dQ kernel of the inputs' dtype; returns dq in that
-    dtype."""
+    dtype.  `split` as for `flash_backward_dkv_cuda`."""
     bh = _check_backward_inputs(q, k, v, do, lse, di)
     name = FLASH_KERNELS[q.dtype][2]
     dq = torch.empty_like(q)
+    if q.dtype == torch.float32:
+        sp = _f32_split(q, k, v, do, split)
+        ins = [sp[n].data_ptr() for n in ("q_hl", "k_hl", "v_hl", "do_hl",
+                                          "k_t")]
+    else:
+        ins = [t.data_ptr() for t in (q, k, v, do)]
     err = getattr(cuda_lib.library(name), f"spf_{name}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), bh, q.shape[2],
+        *ins, lse.data_ptr(), di.data_ptr(), dq.data_ptr(), bh, q.shape[2],
         k.shape[2], float(scale), cuda_lib.stream_handle(q.device))
     cuda_lib.launch_counts[name] += 1
     cuda_lib.check(err, name)
@@ -224,7 +329,7 @@ class _FlashAttention(torch.autograd.Function):
     """K5 as a differentiable function: the forward kernel saves O and the
     rows' log-sum-exp; the backward computes di = rowsum(dO * O) in
     float32 (outside any kernel, as JAX does) and launches the dK/dV and
-    dQ kernels."""
+    dQ kernels (for float32 after one split pre-pass that both read)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -239,8 +344,11 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = _aligned(do.to(q.dtype))
         di = (do.float() * o.float()).sum(-1)
-        dk, dv = flash_backward_dkv_cuda(q, k, v, do, lse, di, ctx.scale)
-        dq = flash_backward_dq_cuda(q, k, v, do, lse, di, ctx.scale)
+        split = (flash_f32_split_cuda(q, k, v, do)
+                 if q.dtype == torch.float32 else None)
+        dk, dv = flash_backward_dkv_cuda(q, k, v, do, lse, di, ctx.scale,
+                                         split)
+        dq = flash_backward_dq_cuda(q, k, v, do, lse, di, ctx.scale, split)
         return dq, dk, dv, None
 
 

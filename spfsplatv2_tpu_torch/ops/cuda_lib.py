@@ -59,23 +59,31 @@ SIGNATURES = {
     "flash_f32_forward": {
         "spf_flash_f32_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     },
+    "flash_f32_split": {
+        "spf_flash_f32_split": [_P] * 11 + [_I, _I, _I, _P],
+    },
     "flash_f32_backward_dkv": {
-        "spf_flash_f32_backward_dkv": [_P] * 8 + [_I, _I, _I, _F, _P],
+        "spf_flash_f32_backward_dkv": [_P] * 10 + [_I, _I, _I, _F, _P],
     },
     "flash_f32_backward_dq": {
-        "spf_flash_f32_backward_dq": [_P] * 7 + [_I, _I, _I, _F, _P],
+        "spf_flash_f32_backward_dq": [_P] * 8 + [_I, _I, _I, _F, _P],
     },
     # Not a path kernel: each kind of wgmma product of K5's backward
     # alone, for the tests (no launch count).
     "wgmma_check": {
         "spf_wgmma_check": [_P, _P, _P, _I, _I, _I, _P],
     },
+    # Not a path kernel either: each kind of 3xTF32 product of K5's
+    # float32 backward alone, for the tests (no launch count).
+    "wgmma_tf32_check": {
+        "spf_wgmma_tf32_check": [_P, _P, _P, _I, _I, _P],
+    },
 }
 
 launch_counts: dict[str, int] = {
     "composite_forward": 0, "composite_backward": 0, "cumsum_1d": 0,
     "segmented_scan": 0, "flash_forward": 0, "flash_backward_dkv": 0,
-    "flash_backward_dq": 0, "flash_f32_forward": 0,
+    "flash_backward_dq": 0, "flash_f32_forward": 0, "flash_f32_split": 0,
     "flash_f32_backward_dkv": 0, "flash_f32_backward_dq": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}

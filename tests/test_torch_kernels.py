@@ -20,6 +20,8 @@ from spfsplatv2_tpu_torch.ops.attention import (
     flash_backward_dkv_plain,
     flash_backward_dq_cuda,
     flash_backward_dq_plain,
+    flash_f32_split_cuda,
+    flash_f32_split_plain,
     flash_forward_cuda,
     flash_forward_plain,
     _dense,
@@ -504,15 +506,20 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
 @pytest.mark.parametrize("n_q,n_k",
                          [(4098, 4098), (4096, 4096), (300, 389), (100, 7),
                           (64, 1), (63, 65), (65, 63), (130, 4098),
-                          (4098, 127), (4098, 129)])
+                          (4098, 127), (4098, 129), (31, 389), (32, 389),
+                          (33, 389), (300, 31), (300, 32), (300, 33),
+                          (127, 300), (129, 300)])
 def test_flash_f32_kernels_match_plain(cuda_device, n_q, n_k):
     """K5's float32 kernels (csrc/flash_f32_*.cu) against their plain
     versions at ragged lengths: O and lse within 2e-5 of their max, dQ,
-    dK and dV within 1e-4 (nothing is rounded; float32 sums in another
-    order).  Each CTA takes 64 query rows (forward, dQ) or keys (dK/dV)
-    and walks 64-row tiles of the other axis: (63, 65), (65, 63) and
-    (4098, 127-129) end at both sides of a tile; with one key dQ and dK
-    are zero up to rounding and held within 1e-4 absolute."""
+    dK and dV within 1e-4 (the backward pair's 3xTF32 products keep
+    float32 accuracy; float32 sums in another order).  The forward takes
+    64 query rows a CTA and 64-key tiles; the dK/dV kernel 128 keys a CTA
+    (64 a warpgroup) and 32-query tiles; the dQ kernel 128 query rows a
+    CTA (64 a warpgroup) and 32-key tiles: (63, 65), (65, 63), (4098,
+    127-129), n_q of 31-33, n_k of 31-33 and n_q of 127 and 129 end at
+    both sides of a tile; with one key dQ and dK are zero up to rounding
+    and held within 1e-4 absolute."""
     _check_flash_kernels(cuda_device, 1, 3, n_q, n_k, torch.float32)
 
 
@@ -531,6 +538,91 @@ def test_flash_f32_kernels_across_heads_and_scales(cuda_device):
         assert _within(o, o_p, 2e-5)
         assert float((lse - lse_p).abs().max()) <= 2e-5 * float(
             lse_p.abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_f32_backward_is_deterministic(cuda_device):
+    """The float32 backward pair writes each output row once, with no
+    atomics, and sums its tiles in a fixed order: two launches of each
+    kernel (and of the split pre-pass) on the same inputs give the same
+    bits."""
+    q, k, v, do = _flash_inputs(cuda_device, 2, 3, 4098, 4098, seed=2,
+                                dtype=torch.float32)
+    o, lse = flash_forward_cuda(q, k, v, 0.125)
+    di = (do * o).sum(-1)
+    args = (q, k, v, do, lse, di, 0.125)
+    splits = [flash_f32_split_cuda(q, k, v, do) for _ in range(2)]
+    runs = [(*flash_backward_dkv_cuda(*args, split=sp),
+             flash_backward_dq_cuda(*args, split=sp)) for sp in splits]
+    torch.cuda.synchronize()
+    for name in splits[0]:
+        assert torch.equal(splits[0][name], splits[1][name]), name
+    for name, first, second in zip(("dk", "dv", "dq"), *runs):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q,n_k", [(4098, 4098), (300, 389), (5, 13),
+                                     (64, 1)])
+def test_flash_f32_split_matches_plain(cuda_device, n_q, n_k):
+    """The split pre-pass (csrc/flash_f32_split.cu) writes bit for bit
+    what its plain version computes: the hi and lo tf32 planes of q, k, v
+    and dO as they lie, and those of q, k and dO transposed, padded with
+    zeros to a multiple of 8 rows and permuted inside each group of 8."""
+    q, k, v, do = _flash_inputs(cuda_device, 2, 3, n_q, n_k, seed=5,
+                                dtype=torch.float32)
+    cuda_lib.reset_launch_counts()
+    got = flash_f32_split_cuda(q, k, v, do)
+    assert cuda_lib.launch_counts["flash_f32_split"] == 1
+    torch.cuda.synchronize()
+    want = flash_f32_split_plain(q, k, v, do)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2],
+                         ids=["a_shared-k64-n32", "a_accumulator-k32-n64",
+                              "a_registers-k64-n32"])
+def test_wgmma_tf32_product_matches_float64(cuda_device, mode):
+    """Each kind of 3xTF32 product of K5's float32 backward alone
+    (csrc/wgmma_tf32_check.cu): A from shared memory over both 128-byte
+    halves of a 256-byte row (dP^T, S, dP); A from an m64n32
+    accumulator's registers with the k axis permuted and B the split
+    pre-pass's transposed planes (dV, dK, dQ); A loaded into registers
+    from its planes in device memory (S^T, with K in registers); against
+    a float64 matmul of the same float32 inputs.  Three passes must keep
+    float32 accuracy: within 1e-5 of max (a k-term float32 sum errs
+    ~k * 2^-24 ~ 4e-6 of max at worst; a wrong descriptor, half offset,
+    fragment order or permutation errs by the order of max).  One pass
+    (hi * hi) keeps 10 mantissa bits and must err at least 10x more:
+    that is why three are needed."""
+    rng = np.random.default_rng(20 + mode)
+    make = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    if mode == 1:
+        a, x = make(64, 32), make(32, 64)
+        ref = a.double() @ x.double()
+        a_in = a
+        b_in = flash_f32_split_plain(*[x[None, None]] * 4)["k_t"][:, 0]
+    else:
+        a, bt = make(64, 64), make(32, 64)
+        ref = a.double() @ bt.double().T
+        a_in = flash_f32_split_plain(*[a[None, None]] * 4)["k_hl"][:, 0]
+        b_in = flash_f32_split_plain(*[bt[None, None]] * 4)["k_hl"][:, 0]
+    a_in, b_in = a_in.contiguous(), b_in.contiguous()
+    errs = {}
+    for passes in (3, 1):
+        c = torch.empty(ref.shape, device=cuda_device)
+        err = cuda_lib.library("wgmma_tf32_check").spf_wgmma_tf32_check(
+            a_in.data_ptr(), b_in.data_ptr(), c.data_ptr(), mode, passes,
+            cuda_lib.stream_handle(cuda_device))
+        cuda_lib.check(err, "wgmma_tf32_check")
+        torch.cuda.synchronize()
+        errs[passes] = float((c.double() - ref).abs().max() / ref.abs().max())
+    assert errs[3] <= 1e-5, errs
+    assert errs[1] >= 10 * errs[3], errs
 
 
 @pytest.mark.cuda
@@ -650,7 +742,8 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
 @pytest.mark.cuda
 def test_flash_f32_autograd_matches_dense(cuda_device):
     """The autograd function on float32 inputs launches the three float32
-    kernels once each (and no bf16 one) and matches autograd through the
+    kernels and the backward's split pre-pass once each (and no bf16
+    one) and matches autograd through the
     dense form in float32 within 1e-4 of each max; mixed dtypes raise."""
     q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1,
                                 dtype=torch.float32)
@@ -662,7 +755,8 @@ def test_flash_f32_autograd_matches_dense(cuda_device):
               if n.startswith("flash")}
     assert counts == {"flash_forward": 0, "flash_backward_dkv": 0,
                       "flash_backward_dq": 0, "flash_f32_forward": 1,
-                      "flash_f32_backward_dkv": 1, "flash_f32_backward_dq": 1}
+                      "flash_f32_split": 1, "flash_f32_backward_dkv": 1,
+                      "flash_f32_backward_dq": 1}
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = _dense(*ref_leaves, 0.125)
     ref_grads = torch.autograd.grad(ref, ref_leaves, do)
