@@ -33,7 +33,9 @@ Phases, each printing JSON lines:
      its gradients against the dense oracle's autograd on the 64^2 scene;
   8. K4 (`segmented_scan_lanes`, csrc/segmented_scan.cu) on phase 7's rows
      in source order against its plain version, timed beside the
-     `index_add_` that computes the same per-Gaussian sums;
+     `index_add_` that computes the same per-Gaussian sums, its device
+     time and device operations a call from torch.profiler (one kernel,
+     and the memset that zeroes its status words);
   9. test-time pose alignment: one request through `evaluate_example(...,
      align_pose=True)` at the published 100 steps and lr 5e-4, with K2's
      launches read around it;
@@ -75,17 +77,17 @@ Phases, each printing JSON lines:
      versions, both kernels timed beside SDPA's backward;
      then the float32 long-context path, the same encoder with
      `CrocoBackboneConfig(compute_dtype="float32")` (the same seeded
-     weights): "K5_f32", K5's float32 kernels (csrc/flash_f32_forward.cu
-     on FP32 FMAs; the backward pair flash_f32_backward_dkv.cu,
-     flash_f32_backward_dq.cu on 3xTF32 after the split pre-pass
-     flash_f32_split.cu) at phase 10's three shapes on seeded float32
-     inputs, O and lse within 2e-5 and dQ, dK, dV within 1e-4 of max
-     against their plain versions, the split bit for bit, each new kernel
-     launched twice with identical bits, the autograd function against
-     the dense form, timed beside their plain versions and SDPA in
-     float32 with their TFLOP/s beside their bounds (the forward's on
-     the FP32 units, the pair's 3 x its FLOPs at the TF32 rate, the FP32
-     bound printed beside it);
+     weights): "K5_f32", K5's float32 kernels, all on 3xTF32
+     (csrc/flash_f32_forward.cu after the forward split pre-pass, the
+     backward pair flash_f32_backward_dkv.cu, flash_f32_backward_dq.cu
+     after the backward's; both passes in flash_f32_split.cu) at phase
+     10's three shapes on seeded float32 inputs, O and lse within 2e-5 and
+     dQ, dK, dV within 1e-4 of max against their plain versions, the
+     splits bit for bit, each kernel launched twice with identical bits,
+     the autograd function against the dense form, timed beside their
+     plain versions and SDPA in float32 with their TFLOP/s beside their
+     bounds (3 x their FLOPs at the TF32 rate, the FP32 bound printed
+     beside it);
      "serving_1024_f32", 3 requests at 1024^2 through `evaluate_example`
      (48 float32 forward launches each, no bf16 K5 launch), encoder block
      12's real q, k, v through the float32 kernel against the plain
@@ -95,7 +97,8 @@ Phases, each printing JSON lines:
      probes' peaks recorded), launch counts read around exactly those
      steps, their first K2 launch held against its plain version; then
      "K5_f32_train", the float32 backward pair (and its split) at the
-     shapes those steps gave it, two launches bit-identical;
+     shapes those steps gave it, two launches bit-identical, and the
+     forward (and its split) at the same shapes beside SDPA's forward;
  14. the command line, `spfsplatv2_tpu_torch.main.main([...])` in process
      with `--config experiments/spfsplatv2/re10k.yaml` and overrides only
      (phases "cli_*"): synthetic train, val and test chunks written under
@@ -153,8 +156,8 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12      # FP32 outside the tensor cores, same source
 H100_BF16_PER_S = 989e12     # bf16 tensor cores, dense, same source
 H100_TF32_PER_S = 495e12     # TF32 tensor cores, dense, same source
-# K5's float32 backward pair runs each product as three TF32 products
-# (lo*hi + hi*lo + hi*hi): its bound is 3 x its FLOPs at the TF32 rate.
+# K5's float32 kernels run each product as three TF32 products (lo*hi +
+# hi*lo + hi*hi): their bound is 3 x their FLOPs at the TF32 rate.
 K5_TF32_PASSES = 3
 # FP32 operations per (pixel, entry) pair in K1: an evaluated pair pays
 # dx, dy and the power (11), exp, scale and clamp (3); a blended pair adds
@@ -424,47 +427,72 @@ def k5_kernels(attention, dtype) -> dict:
 
 def k5_bound_ms(torch, role: str, shape: tuple, dtype) -> float:
     """A K5 kernel's least time at (b, h, n_q, n_k), by kernel: its FLOPs
-    on the bf16 tensor cores; for float32, the forward's on the FP32
-    units, the backward pair's three times over at the TF32 rate."""
+    on the bf16 tensor cores; for float32, three times over at the TF32
+    rate."""
     b, h, n_q, n_k = shape
     flops = K5_FLOPS[role] * b * h * n_q * n_k * 64
     if dtype == torch.bfloat16:
         return flops / H100_BF16_PER_S * 1e3
-    if role == "forward":
-        return flops / H100_FP32_PER_S * 1e3
     return K5_TF32_PASSES * flops / H100_TF32_PER_S * 1e3
 
 
 def k5_fma_bound_ms(role: str, shape: tuple) -> float:
-    """The same FLOPs on the FP32 units (67 TFLOP/s): the float32 pair's
-    bound before its products moved to the tensor cores."""
+    """The same FLOPs on the FP32 units (67 TFLOP/s): the float32 kernels'
+    bound before their products moved to the tensor cores."""
     b, h, n_q, n_k = shape
     return K5_FLOPS[role] * b * h * n_q * n_k * 64 / H100_FP32_PER_S * 1e3
 
 
 def split_bytes(shape: tuple) -> int:
-    """The split pre-pass's bytes: q, k, v, dO read once; their hi and lo
-    planes as they lie (8) and those of q, k, dO transposed, n padded to
-    a multiple of 8 (6), written once."""
+    """The backward's split pre-pass's bytes: q, k, v, dO read once; their
+    hi and lo planes as they lie (8) and those of q, k, dO transposed, n
+    padded to a multiple of 8 (6), written once."""
     b, h, n_q, n_k = shape
     n8_q, n8_k = -(-n_q // 8) * 8, -(-n_k // 8) * 8
     rows = 2 * (n_q + n_k) * 3 + 2 * (2 * n8_q + n8_k)
     return b * h * 64 * 4 * rows
 
 
+def split_forward_bytes(shape: tuple) -> int:
+    """The forward's split pre-pass's bytes: k and v read once, k's hi and
+    lo planes and v's transposed ones (n padded to a multiple of 8)
+    written once."""
+    b, h, _, n_k = shape
+    return b * h * 64 * 4 * (2 * n_k + 2 * n_k + 2 * (-(-n_k // 8) * 8))
+
+
 def f32_split_check(torch, attention, q, k, v, do, where: str) -> dict:
-    """The split pre-pass twice on the same inputs against its plain
-    version: all bit-identical, or fail."""
-    first = attention.flash_f32_split_cuda(q, k, v, do)
-    second = attention.flash_f32_split_cuda(q, k, v, do)
+    """The split pre-passes twice on the same inputs against their plain
+    versions (the backward's on q, k, v, dO; the forward's on k, v): all
+    bit-identical, or fail.  Returns the backward's planes."""
+    planes = []
+    for fn, plain_fn, args in (
+            (attention.flash_f32_split_cuda, attention.flash_f32_split_plain,
+             (q, k, v, do)),
+            (attention.flash_f32_split_forward_cuda,
+             attention.flash_f32_split_forward_plain, (k, v))):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        for name, want in plain_fn(*args).items():
+            if not (torch.equal(first[name], want)
+                    and torch.equal(second[name], want)):
+                fail(f"K5 float32 split {where} {name}: not bit-identical to "
+                     "its plain version in two launches")
+        planes.append(first)
+    return planes[0]
+
+
+def forward_twice(torch, attention, q, k, v, scale, where: str) -> tuple:
+    """The float32 forward (with its split pre-pass) launched twice on the
+    same inputs; fail unless the two give identical bits.  Returns (o,
+    lse)."""
+    runs = [attention.flash_forward_cuda(q, k, v, scale) for _ in range(2)]
     torch.cuda.synchronize()
-    plain = attention.flash_f32_split_plain(q, k, v, do)
-    for name, want in plain.items():
-        if not (torch.equal(first[name], want)
-                and torch.equal(second[name], want)):
-            fail(f"K5 float32 split {where} {name}: not bit-identical to "
-                 "its plain version in two launches")
-    return first
+    for name, a, b_ in zip(("o", "lse"), *runs):
+        if not torch.equal(a, b_):
+            fail(f"K5 float32 {where}: two launches of the forward differ "
+                 f"in {name}")
+    return runs[0]
 
 
 def pair_twice(torch, attention, args, split, where: str) -> tuple:
@@ -491,7 +519,11 @@ def k5_inputs(torch, attention, shape: tuple, gen, dev, dtype) -> tuple:
         return torch.randn(b, h, n, 64, generator=gen, device=dev).to(dtype)
 
     q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
-    o, lse = attention.flash_forward_cuda(q, k, v, 64**-0.5)
+    if dtype == torch.float32:
+        o, lse = forward_twice(torch, attention, q, k, v, 64**-0.5,
+                               f"shape {shape}")
+    else:
+        o, lse = attention.flash_forward_cuda(q, k, v, 64**-0.5)
     return q, k, v, do, o, lse, (do.float() * o.float()).sum(-1)
 
 
@@ -595,8 +627,10 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
     if dtype == torch.float32:
         kernels["flash_f32_split"] = split_times(torch, attention, shape,
                                                  (q, k, v, do))
+        kernels["flash_f32_split_forward"] = split_times(
+            torch, attention, shape, (k, v))
     pair_ms = sum(kernels[n]["ms"] for n in kernels
-                  if n != names["forward"])
+                  if n not in (names["forward"], "flash_f32_split_forward"))
     times["forward"]["ex2_bound_ms"] = b * h * n_q * n_k / H100_EX2_PER_S * 1e3
     times["forward"]["max_abs_err"] = checks["o"]["max_abs_err"]
     times["backward_dkv"]["max_abs_err"] = max(
@@ -614,16 +648,25 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
 
 
 def split_times(torch, attention, shape: tuple, inputs: tuple) -> dict:
-    """The split pre-pass's entry: its time beside its byte bound and its
-    plain version's (no one PyTorch call computes it; the pair's times
-    with it stand beside SDPA's backward); bit-identical to the plain
-    version where `f32_split_check` ran."""
-    ms = time_ms(torch, lambda: attention.flash_f32_split_cuda(*inputs), 10)
-    bound = split_bytes(shape) / H100_BYTES_PER_S * 1e3
-    return {"ms": ms, "plain_ms": time_ms(
-        torch, lambda: attention.flash_f32_split_plain(*inputs), 3,
-        warmup=1), "bound_ms": bound, "bound_by": "bytes",
-        "bound_share": bound / ms, "library_ms": None, "max_abs_err": 0.0}
+    """A split pre-pass's entry, the backward's on (q, k, v, dO) or the
+    forward's on (k, v): its time beside its byte bound and its plain
+    version's (no one PyTorch call computes it; the kernels' times with
+    it stand beside SDPA's); bit-identical to the plain version where
+    `f32_split_check` ran."""
+    if len(inputs) == 4:
+        fn, plain, nbytes = (attention.flash_f32_split_cuda,
+                             attention.flash_f32_split_plain,
+                             split_bytes(shape))
+    else:
+        fn, plain, nbytes = (attention.flash_f32_split_forward_cuda,
+                             attention.flash_f32_split_forward_plain,
+                             split_forward_bytes(shape))
+    ms = time_ms(torch, lambda: fn(*inputs), 10)
+    bound = nbytes / H100_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": time_ms(torch, lambda: plain(*inputs), 3,
+                                          warmup=1),
+            "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+            "library_ms": None, "max_abs_err": 0.0}
 
 
 def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
@@ -631,16 +674,19 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     step's autograd gave it, on seeded inputs: the first batch element
     held against the plain versions (the whole batch's float32 logits
     would take tens of GB), both kernels timed beside SDPA's backward;
-    float32: the split pre-pass and each kernel launched twice with
-    identical bits (the split also bit for bit against its plain
-    version), the split timed beside its byte bound."""
+    float32: the split pre-passes and each kernel launched twice with
+    identical bits (the splits also bit for bit against their plain
+    versions), the splits timed beside their byte bounds, and the forward
+    (which the step runs at the same shape) held against its plain
+    version on the first batch element and timed beside SDPA's
+    forward."""
     import torch.nn.functional as F
 
     b, h, n_q, n_k = shape
     scale = 64**-0.5
     grad_tol = K5_TOLS[str(dtype).removeprefix("torch.")][2]
     names = k5_kernels(attention, dtype)
-    q, k, v, do, _, lse, di = k5_inputs(torch, attention, shape, gen, dev,
+    q, k, v, do, o, lse, di = k5_inputs(torch, attention, shape, gen, dev,
                                         dtype)
     args = (q, k, v, do, lse, di, scale)
     split = None
@@ -658,10 +704,17 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     dq_p = attention.flash_backward_dq_plain(*first)
     checks = {"dq": max_err(dq[:1], dq_p), "dk": max_err(dk[:1], dk_p),
               "dv": max_err(dv[:1], dv_p)}
+    if dtype == torch.float32:
+        o_p, lse_p = attention.flash_forward_plain(q[:1], k[:1], v[:1], scale)
+        checks["o"], checks["lse"] = max_err(o[:1], o_p), max_err(lse[:1],
+                                                                  lse_p)
+        del o_p, lse_p
     for key, c in checks.items():
-        if not c["max_abs_err"] <= grad_tol * c["ref_max_abs"]:
+        tol = {"o": K5_TOLS["float32"][0],
+               "lse": K5_TOLS["float32"][1]}.get(key, grad_tol)
+        if not c["max_abs_err"] <= tol * c["ref_max_abs"]:
             fail(f"K5 {dtype} {key} at train shape {shape} vs plain: {c}")
-    del dk, dv, dq, dk_p, dv_p, dq_p
+    del o, dk, dv, dq, dk_p, dv_p, dq_p
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, scale=scale)
     iters = 10 if dtype == torch.bfloat16 else 3
@@ -682,10 +735,24 @@ def k5_train_shape(torch, attention, shape: tuple, gen, dev, dtype) -> dict:
     if dtype == torch.float32:
         kernels["flash_f32_split"] = split_times(torch, attention, shape,
                                                  (q, k, v, do))
+    pair_ms = sum(t["ms"] for t in kernels.values())
+    if dtype == torch.float32:
+        ms = time_ms(torch, lambda: attention.flash_forward_cuda(
+            q, k, v, scale), iters)
+        bound = k5_bound_ms(torch, "forward", shape, dtype)
+        kernels[names["forward"]] = {
+            "ms": ms, "tflops": K5_FLOPS["forward"] * b * h * n_q * n_k * 64
+            / ms / 1e9, "bound_ms": bound, "bound_by": "operations",
+            "bound_share": bound / ms,
+            "fp32_fma_bound_ms": k5_fma_bound_ms("forward", shape),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), iters),
+            "max_abs_err": checks["o"]["max_abs_err"]}
+        kernels["flash_f32_split_forward"] = split_times(
+            torch, attention, shape, (k, v))
     return {"shape": list(shape), "dtype": str(dtype),
             "vs_plain_first_batch": checks, "kernels": kernels,
-            "pair_ms": sum(t["ms"] for t in kernels.values()),
-            "sdpa_backward_ms": sdpa_bwd}
+            "pair_ms": pair_ms, "sdpa_backward_ms": sdpa_bwd}
 
 
 def run_train_step(torch, dev, state, step_fn, batch) -> dict:
@@ -932,6 +999,7 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
                                            dec_cfg, eval_cfg)
     want = {k: 0 for k in serve_counts}
     want.update(flash_f32_forward=K5_PER_PASS * F32_REQUESTS,
+                flash_f32_split_forward=K5_PER_PASS * F32_REQUESTS,
                 composite_forward=F32_REQUESTS, cumsum_1d=2 * F32_REQUESTS)
     if serve_counts != want:
         fail(f"serving_1024_f32 launch counts {serve_counts}, expected {want}")
@@ -1027,6 +1095,7 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
     passes = len(batches) * (LONG_BATCH // microbatch)
     want = {k: 0 for k in train_counts}
     want.update(flash_f32_forward=2 * K5_PER_PASS * passes,
+                flash_f32_split_forward=2 * K5_PER_PASS * passes,
                 flash_f32_split=K5_PER_PASS * passes,
                 flash_f32_backward_dkv=K5_PER_PASS * passes,
                 flash_f32_backward_dq=K5_PER_PASS * passes,
@@ -1944,8 +2013,18 @@ def main() -> int:
         fail("K4 outside 1e-5 x the running sum of |x|")
     sums_out = torch.zeros((g + 1, 10), device=dev)
     k4_bytes = 2 * vals.numel() * 4 + seg.numel() * 4
+    # One kernel a call (its look-back's status words are zeroed by a
+    # memset on the stream, a device operation but no kernel launch).
+    k4_device_ms, k4_per_call = profile_calls(
+        torch, lambda: segmented_scan_lanes_cuda(vals, seg), K3_PROFILE_CALLS)
+    k4_kernels = {name: c for name, c in k4_per_call.items()
+                  if not name.lower().startswith("memset")}
+    if list(k4_kernels.values()) != [1.0]:
+        fail(f"K4 ran {k4_per_call} device operations a call, not one "
+             "kernel")
     k4 = {
         "ms": time_ms(torch, lambda: segmented_scan_lanes_cuda(vals, seg), 100),
+        "device_ms": k4_device_ms,
         "plain_ms": time_ms(torch, lambda: segmented_scan_lanes_plain(vals, seg),
                             10),
         "library_ms": time_ms(torch, lambda: sums_out.zero_().index_add_(
@@ -1957,7 +2036,7 @@ def main() -> int:
     }
     emit({"phase": "K4", "rows": vals.shape[0], "n": vals.shape[1],
           "segments": int((bins.live_counts > 0).sum()),
-          "bound_bytes": k4_bytes,
+          "bound_bytes": k4_bytes, "device_ops_per_call": k4_per_call,
           "library": "index_add_ of the same rows into (g + 1, 10) sums", **k4})
 
     # ---- 9. test-time pose alignment ----------------------------------
@@ -2286,28 +2365,36 @@ def main() -> int:
                 "check": {call: {key: c["max_abs_err"] / c["ref_max_abs"]
                                  for key, c in res["vs_plain"].items()}
                           for call, res in results.items()}}
-            if role != "forward":
+            if role != "forward" or dtype == torch.float32:
                 entry["at_train_shapes"] = [
                     {"shape": list(shape), **res["kernels"][name]}
                     for shape, res in train_results.items()]
             entries.append(entry)
         if dtype == torch.float32:
-            name = "flash_f32_split"
-            entries.append({
-                "name": name, "route": "cuda",
-                "source": f"spfsplatv2_tpu_torch/csrc/{name}.cu",
-                "replaces": "jax/experimental/pallas/ops/tpu/"
-                            "flash_attention.py:796",
-                "note": "the 3xTF32 backward pair's pre-pass (hi and lo "
-                        "tf32 planes, transposed operands); part of the "
-                        "port of the dK/dV (:796) and dQ (:1146) kernels",
-                "launches": train[name], "launches_by_path": by_path(name),
-                **results["encoder"]["kernels"][name],
-                "shape": results["encoder"]["shape"], "dtype": str(dtype),
-                "check": "bit-identical to its plain version, two launches",
-                "at_train_shapes": [
-                    {"shape": list(shape), **res["kernels"][name]}
-                    for shape, res in train_results.items()]})
+            for name, line, note, launches in (
+                    ("flash_f32_split_forward", 331,
+                     "the 3xTF32 forward's pre-pass (hi and lo tf32 planes "
+                     "of k, and of v transposed); part of the port of the "
+                     "forward (:331), its time part of the forward's",
+                     serve),
+                    ("flash_f32_split", 796,
+                     "the 3xTF32 backward pair's pre-pass (hi and lo tf32 "
+                     "planes, transposed operands); part of the port of the "
+                     "dK/dV (:796) and dQ (:1146) kernels", train)):
+                entries.append({
+                    "name": name, "route": "cuda",
+                    "source": "spfsplatv2_tpu_torch/csrc/flash_f32_split.cu",
+                    "replaces": "jax/experimental/pallas/ops/tpu/"
+                                f"flash_attention.py:{line}",
+                    "note": note, "launches": launches[name],
+                    "launches_by_path": by_path(name),
+                    **results["encoder"]["kernels"][name],
+                    "shape": results["encoder"]["shape"], "dtype": str(dtype),
+                    "check": "bit-identical to its plain version, two "
+                             "launches",
+                    "at_train_shapes": [
+                        {"shape": list(shape), **res["kernels"][name]}
+                        for shape, res in train_results.items()]})
         return entries
 
     emit({"kernels": [

@@ -236,8 +236,8 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
 
       float p[16], ds[16];  // 64 keys x 32 queries
       wgmma_fence();
-      product3_rs32(p, ka_hi, ka_lo, a + kAtQ, a + kAtQ + kPlane,
-                    kQHalf);  // S^T
+      product3_rs_k64(p, ka_hi, ka_lo, a + kAtQ, a + kAtQ + kPlane,
+                      kQHalf);  // S^T
       wgmma_commit();
       product3_ss(ds, v_hi, v_hi + kVPlane, kVHalf, a + kAtDO,
                   a + kAtDO + kPlane, kQHalf);  // dP^T

@@ -1,32 +1,37 @@
-// K5, float32 backward, the split pre-pass: the hi and lo tf32 planes of
-// q, k, v and dO that the 3xTF32 backward pair (flash_f32_backward_dkv.cu,
-// flash_f32_backward_dq.cu) reads, once per backward call.
+// K5, float32, the split pre-passes: the hi and lo tf32 planes that the
+// 3xTF32 kernels read, once per call: the forward's (flash_f32_forward.cu)
+// and the backward pair's (flash_f32_backward_dkv.cu,
+// flash_f32_backward_dq.cu).
 //
 // Part of the port of jax/experimental/pallas/ops/tpu/flash_attention.py:
-// _flash_attention_dkv_kernel (:796) and _flash_attention_dq_kernel
-// (:1146); the TPU kernels need no such pass (their MXU takes float32 and
-// either operand transposed).  On the H100 the pair runs on wgmma with
-// tf32 operands, which must be K-major (no transpose bit for tf32) and
-// are split into hi = tf32(x), lo = tf32(x - hi) (flash_sm90.cuh, 3xTF32).
-// So, for each (b*h) head, this pass writes
-//   x_hl (2, bh, n, 64): hi and lo of x as it lies (q, k, v, dO): the
-//       operands whose reduced axis is the head dim (S, dP and their
-//       transposes);
-//   x_t (2, bh, 64, n8): hi and lo of x transposed (q, k, dO), n padded
-//       with zeros to n8, the next multiple of 8, and the n axis permuted
-//       inside each group of 8 (position L holds row 2L for L < 4, row
-//       2(L - 4) + 1 for L >= 4): the B operands of dV += P^T dO,
+// _flash_attention_kernel (:331), _flash_attention_dkv_kernel (:796) and
+// _flash_attention_dq_kernel (:1146); the TPU kernels need no such pass
+// (their MXU takes float32 and either operand transposed).  On the H100
+// the kernels run on wgmma with tf32 operands, which must be K-major (no
+// transpose bit for tf32) and are split into hi = tf32(x), lo = tf32(x -
+// hi) (flash_sm90.cuh, 3xTF32).  So, for each (b*h) head, a pass writes
+//   x_hl (2, bh, n, 64): hi and lo of x as it lies: the operands whose
+//       reduced axis is the head dim (S, dP and their transposes);
+//   x_t (2, bh, 64, n8): hi and lo of x transposed, n padded with zeros
+//       to n8, the next multiple of 8, and the n axis permuted inside each
+//       group of 8 (position L holds row 2L for L < 4, row 2(L - 4) + 1
+//       for L >= 4): the B operands of O += P V, dV += P^T dO,
 //       dK += dS^T Q and dQ += dS K, whose reduced axis is n and whose A
 //       fragments come from accumulators in that order.
-// ops/attention.py:flash_f32_split_plain is the same function in torch;
-// the two agree bit for bit.
+// The backward's pass (spf_flash_f32_split) writes x_hl of q, k, v, dO
+// and x_t of q, k, dO; the forward's (spf_flash_f32_split_forward) k_hl
+// and v_t (the forward splits q in registers).
+// ops/attention.py:flash_f32_split_plain and flash_f32_split_forward_plain
+// are the same functions in torch; each agrees with its pass bit for bit.
 //
-// What bounds it on an H100: memory.  It reads 4 tensors and writes 14
-// planes of the same size (at the train shape (6, 16, 4096, 64): 0.40 GB
-// in, 1.41 GB out, 0.54 ms at 3.35 TB/s).  One CTA of 256 threads takes
-// 64 rows of one tensor of one head: float4 loads and stores for the
-// planes as they lie, and the transposed planes through shared memory
-// (rows padded to 65 floats), written 64 consecutive floats a row.
+// What bounds it on an H100: memory.  The backward's pass reads 4 tensors
+// and writes 14 planes of the same size (at the train shape (6, 16,
+// 4096, 64): 0.40 GB in, 1.41 GB out, 0.54 ms at 3.35 TB/s); the
+// forward's reads 2 and writes 4 (at the encoder's (3, 16, 4096, 64):
+// 0.30 GB, 0.090 ms).  One CTA of 256 threads takes 64 rows of one tensor
+// of one head: float4 loads and stores for the planes as they lie, and
+// the transposed planes through shared memory (rows padded to 65 floats),
+// written 64 consecutive floats a row.
 
 #include "flash_sm90.cuh"
 
@@ -37,34 +42,35 @@ constexpr int kRows = 64;
 constexpr int kThreads = 256;
 constexpr int kPad = kD + 1;
 
+// One tensor of a pass: x (bh, n, 64) in, its planes out (either may be
+// null: not written).
+struct Job {
+  const float* x;
+  float* hl;
+  float* t;
+  int n;
+};
+
+struct Jobs {
+  Job job[4];  // blockIdx.z picks one
+};
+
 __device__ __forceinline__ float tf32(float x) {
   return __uint_as_float(sm90::to_tf32(x));
 }
 
 __global__ void __launch_bounds__(kThreads)
-flash_f32_split_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const float* __restrict__ d_o, float* __restrict__ q_hl,
-                       float* __restrict__ k_hl, float* __restrict__ v_hl,
-                       float* __restrict__ do_hl, float* __restrict__ q_t,
-                       float* __restrict__ k_t, float* __restrict__ do_t,
-                       int n_q, int n_k) {
+flash_f32_split_kernel(const __grid_constant__ Jobs jobs) {
   __shared__ float hi_s[kRows * kPad], lo_s[kRows * kPad];
-  const int which = blockIdx.z;  // 0 q, 1 k, 2 v, 3 dO
-  const float* x = which == 0 ? q : which == 1 ? k : which == 2 ? v : d_o;
-  float* hl = which == 0 ? q_hl : which == 1 ? k_hl : which == 2 ? v_hl
-                                                                  : do_hl;
-  float* xt = which == 0 ? q_t : which == 1 ? k_t : which == 3 ? do_t
-                                                               : nullptr;
-  const int n = which == 1 || which == 2 ? n_k : n_q;
+  const Job& job = jobs.job[blockIdx.z];
+  const int n = job.n;
   const int r0 = blockIdx.x * kRows;
   if (r0 >= n) return;
   const int n8 = (n + 7) & ~7;
   const size_t bh = gridDim.y, head = blockIdx.y;
   const size_t plane = bh * n * kD;  // lo lies one plane after hi
-  x += head * n * kD;
-  hl += head * n * kD;
+  const float* x = job.x + head * n * kD;
+  float* hl = job.hl == nullptr ? nullptr : job.hl + head * n * kD;
 
 #pragma unroll
   for (int i = 0; i < kRows * kD / 4 / kThreads; ++i) {
@@ -77,21 +83,21 @@ flash_f32_split_kernel(const float* __restrict__ q,
                                  tf32(val.w));
     const float4 l = make_float4(tf32(val.x - h.x), tf32(val.y - h.y),
                                  tf32(val.z - h.z), tf32(val.w - h.w));
-    if (r0 + r < n) {
+    if (hl != nullptr && r0 + r < n) {
       *reinterpret_cast<float4*>(hl + (size_t)(r0 + r) * kD + c) = h;
       *reinterpret_cast<float4*>(hl + plane + (size_t)(r0 + r) * kD + c) = l;
     }
-    if (xt != nullptr) {
+    if (job.t != nullptr) {
       float* hs = hi_s + r * kPad + c;
       float* ls = lo_s + r * kPad + c;
       hs[0] = h.x; hs[1] = h.y; hs[2] = h.z; hs[3] = h.w;
       ls[0] = l.x; ls[1] = l.y; ls[2] = l.z; ls[3] = l.w;
     }
   }
-  if (xt == nullptr) return;
+  if (job.t == nullptr) return;
   __syncthreads();
   const size_t t_plane = bh * kD * n8;
-  xt += head * kD * n8;
+  float* xt = job.t + head * kD * n8;
 #pragma unroll
   for (int i = 0; i < kRows * kD / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
@@ -105,6 +111,15 @@ flash_f32_split_kernel(const float* __restrict__ q,
   }
 }
 
+int launch(const Jobs& jobs, int count, int bh, int n, void* stream) {
+  if (bh <= 0 || n <= 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((n + kRows - 1) / kRows), (unsigned)bh,
+                  (unsigned)count);
+  flash_f32_split_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(jobs);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, d_o (bh, n_q, 64) and k, v (bh, n_k, 64) float32; q_hl, do_hl
@@ -116,16 +131,30 @@ extern "C" int spf_flash_f32_split(const void* q, const void* k,
                                    void* k_hl, void* v_hl, void* do_hl,
                                    void* q_t, void* k_t, void* do_t, int bh,
                                    int n_q, int n_k, void* stream) {
-  if (bh <= 0 || n_q <= 0 || n_k <= 0) return (int)cudaGetLastError();
-  const int n = n_q > n_k ? n_q : n_k;
-  const dim3 grid((unsigned)((n + kRows - 1) / kRows), (unsigned)bh, 4);
-  flash_f32_split_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(d_o),
-      static_cast<float*>(q_hl), static_cast<float*>(k_hl),
-      static_cast<float*>(v_hl), static_cast<float*>(do_hl),
-      static_cast<float*>(q_t), static_cast<float*>(k_t),
-      static_cast<float*>(do_t), n_q, n_k);
-  return (int)cudaGetLastError();
+  if (n_q <= 0 || n_k <= 0) return (int)cudaGetLastError();
+  const Jobs jobs = {{
+      {static_cast<const float*>(q), static_cast<float*>(q_hl),
+       static_cast<float*>(q_t), n_q},
+      {static_cast<const float*>(k), static_cast<float*>(k_hl),
+       static_cast<float*>(k_t), n_k},
+      {static_cast<const float*>(v), static_cast<float*>(v_hl), nullptr, n_k},
+      {static_cast<const float*>(d_o), static_cast<float*>(do_hl),
+       static_cast<float*>(do_t), n_q},
+  }};
+  return launch(jobs, 4, bh, n_q > n_k ? n_q : n_k, stream);
+}
+
+// k, v (bh, n_k, 64) float32; k_hl (2, bh, n_k, 64) and v_t (2, bh, 64,
+// n8(n_k)) float32; all contiguous on the current device.  Returns the
+// launch's cudaError_t.
+extern "C" int spf_flash_f32_split_forward(const void* k, const void* v,
+                                           void* k_hl, void* v_t, int bh,
+                                           int n_k, void* stream) {
+  const Jobs jobs = {{
+      {static_cast<const float*>(k), static_cast<float*>(k_hl), nullptr, n_k},
+      {static_cast<const float*>(v), nullptr, static_cast<float*>(v_t), n_k},
+      {nullptr, nullptr, nullptr, 0},
+      {nullptr, nullptr, nullptr, 0},
+  }};
+  return launch(jobs, 2, bh, n_k, stream);
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by K5's three bf16 kernels
 // (flash_forward.cu, flash_backward_dkv.cu, flash_backward_dq.cu), its
-// float32 backward pair (flash_f32_backward_{dkv,dq}.cu) and the checks
+// three float32 kernels (flash_f32_forward.cu,
+// flash_f32_backward_{dkv,dq}.cu) and the checks
 // of their products (wgmma_check.cu, wgmma_tf32_check.cu): TMA tile loads
 // into 128-byte-swizzled shared memory through tensor maps, mbarriers,
 // named barriers, wgmma m64n64k16 / m64n128k16 (bf16 in, f32 accumulate)
@@ -411,8 +412,8 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
 
 // ---- float32 on the tensor cores: 3xTF32 -----------------------------
 //
-// K5's float32 backward kernels (flash_f32_backward_{dkv,dq}.cu) run
-// every product on wgmma m64nNk8 with tf32 operands in three passes:
+// K5's float32 kernels (flash_f32_forward.cu,
+// flash_f32_backward_{dkv,dq}.cu) run every product on wgmma m64nNk8 with tf32 operands in three passes:
 // each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (cvt.rna, round to nearest, ties away from zero), and a product is
 // lo*hi + hi*lo + hi*hi, summed in float32 in that order (the small terms
@@ -436,8 +437,8 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&d)[32],
 // a1 = d[4j+2], a2 = d[4j+1], a3 = d[4j+3]) if the product's k axis is
 // permuted inside each group of 8: k step position L holds column
 // c(L) = 2L for L < 4 and 2(L - 4) + 1 for L >= 4.  The same permutation
-// applies to the B tile's k axis; the split pre-pass
-// (flash_f32_split.cu) writes the transposed B operands that way.
+// applies to the B tile's k axis; the split pre-passes
+// (flash_f32_split.cu) write the transposed B operands that way.
 
 // A float32 tensor (depth, rows, inner) as a 3-D map over (inner, rows,
 // depth), boxes of box_rows rows x 32 floats (one 128-byte swizzle span)
@@ -519,15 +520,16 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 32) = A B^T over k = 64 in three passes, A as 8 k8 fragments
-// (hi, lo) in registers, B (32 rows) a K-major tile of 64 floats a row
-// given by its hi and lo planes, a column half b_half bytes after the
-// first.
-__device__ __forceinline__ void product3_rs32(float (&d)[16],
-                                              const uint32_t (&a_hi)[8][4],
-                                              const uint32_t (&a_lo)[8][4],
-                                              uint32_t b_hi, uint32_t b_lo,
-                                              uint32_t b_half) {
+// d (64 x N/2) = A B^T over k = 64 in three passes, A as 8 k8 fragments
+// (hi, lo) in registers, B (N/2 = 32 or 64 rows) a K-major tile of 64
+// floats a row given by its hi and lo planes, a column half b_half bytes
+// after the first.  d starts from the first pass's product.
+template <int N>
+__device__ __forceinline__ void product3_rs_k64(float (&d)[N],
+                                                const uint32_t (&a_hi)[8][4],
+                                                const uint32_t (&a_lo)[8][4],
+                                                uint32_t b_hi, uint32_t b_lo,
+                                                uint32_t b_half) {
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass)
 #pragma unroll

@@ -9,163 +9,256 @@
 //
 // The TPU kernel carries (value, segment id) from one sequential grid step
 // to the next.  Blocks of a CUDA grid run in no order, so, as K3 does
-// (prefix_scan.cu), the carry becomes three phases, here with the
-// segmented operator (a, fa) + (b, fb) = (fb ? b : a + b, fa | fb), where a
-// flag marks a segment start (element 0, or seg[i] != seg[i - 1]):
-//   1. seg_scan_blocks: each 1024-thread CTA scans 1024 elements of one row
-//      (warp shuffles, then one warp over the 32 warp totals) and writes
-//      the partial scan and its block total (last value, any start);
-//   2. seg_scan_totals: one CTA per row scans the block totals in place;
-//   3. seg_add_carry: every block but the first adds the running sum of
-//      the previous blocks to its leading run, the elements whose segment
-//      id equals that of the element just before the block.
-// The grid's second dimension is the row.  The caller passes only the 10
-// real gradient fields (R = 10), not the TPU layout's 16 padded rows.
+// (prefix_scan.cu), the carry goes through memory in one pass, a decoupled
+// look-back, here with the segmented operator
+//   (a, fa) + (b, fb) = (fb ? b : a + b, fa | fb),
+// where a flag marks a segment start (element 0, or seg[i] != seg[i - 1]):
+//   1. each 128-thread CTA takes a tile of kTile = 1024 elements of one row,
+//      8 consecutive ones a thread, and scans it (in registers, then warp
+//      shuffles, then one warp over the 4 warp totals);
+//   2. it publishes its tile's total and whether the tile holds a segment
+//      start in its status word.  A tile that holds one publishes its
+//      total as its inclusive prefix at once: nothing before it reaches
+//      past its first start.  Its first warp then walks back over the
+//      predecessors' words, 32 at a time, summing totals until it meets an
+//      inclusive one (a tile with a start, or one whose own look-back has
+//      ended), and a tile without a start publishes its inclusive prefix;
+//   3. every thread adds the tile's prefix to its elements before the
+//      first segment start at or before them and stores its 8 sums.
+// A status word is 64 bits, written and read whole: the value's 32 bits
+// and the state (0 unwritten, 1 total, 2 inclusive) above them.  The
+// C entry zeroes the words with cudaMemsetAsync on the call's stream, so
+// a call needs no state from another and can be captured in a CUDA graph
+// (the memset and the kernel are two nodes; a replay zeroes again).  CTAs
+// take their tile from a ticket counter (atomicAdd), in the order they
+// start, so a tile only ever waits for tiles that have started; tickets
+// run tile-major over the rows, so the R rows of one tile read the same
+// ids back to back, mostly from L2.
 //
 // What bounds it on an H100: memory.  At the flagship's e_pad = 524416 and
 // R = 10 the function must read 21 MB of values and 2 MB of ids and write
-// 21 MB (~13 us at 3.35 TB/s); phase 3 rereads the ids and rewrites only the
-// leading runs.  Sums are taken in a tree order within a block.
+// 21 MB (13.2 us at 3.35 TB/s); one launch (instead of three) and short
+// look-backs are what the design buys.  Small tiles keep many CTAs, and
+// their loads, in flight on each SM: on the H100, at that shape, tiles of
+// 1024 elements ran faster than tiles of 2048 or 4096 (with 4, 8 or 16
+// elements a thread).  Sums are taken in a tree order within a tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 1024;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;
+constexpr int kTile = kThreads * kItems;
+constexpr uint32_t kTotal = 1, kInclusive = 2;
 
+__device__ __forceinline__ void store_word(unsigned long long* at,
+                                           unsigned long long w) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(at), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* at) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(w)
+               : "l"(at)
+               : "memory");
+  return w;
+}
+
+__device__ __forceinline__ unsigned long long word(uint32_t state, float v) {
+  return ((unsigned long long)state << 32) | __float_as_uint(v);
+}
+
+// (v, f) becomes (pv, pf) + (v, f), for the pair just before it.
+__device__ __forceinline__ void combine(float pv, int pf, float& v, int& f) {
+  if (!f) v += pv;
+  f |= pf;
+}
+
+// Inclusive segmented scan over the 32 lanes of a warp.
 __device__ __forceinline__ void warp_seg_scan(float& v, int& f) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int offset = 1; offset < 32; offset <<= 1) {
     const float vo = __shfl_up_sync(0xffffffffu, v, offset);
     const int fo = __shfl_up_sync(0xffffffffu, f, offset);
-    if (lane >= offset) {
-      if (!f) v += vo;
-      f |= fo;
-    }
+    if (lane >= offset) combine(vo, fo, v, f);
   }
 }
 
-// Inclusive segmented scan over the kBlock threads of the CTA.  The
-// scratch arrays hold 32 entries; the caller syncs before reusing them.
-__device__ __forceinline__ void block_seg_scan(float& v, int& f, float* wv,
-                                               int* wf) {
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, offset);
+  return v;
+}
+
+// The segmented sum of a row's elements before tile `tile` (the tiles'
+// words at state[0 .. tile - 1]), by the first warp: read the 32 words
+// below the window's top until those from the nearest up to the nearest
+// inclusive one (or all 32) are written, add their values, and move the
+// window down unless one was inclusive.
+__device__ __forceinline__ float look_back(const unsigned long long* state,
+                                           int tile) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_seg_scan(v, f);
-  if (lane == 31) {
-    wv[warp] = v;
-    wf[warp] = f;
+  float prefix = 0.0f;
+  for (int top = tile - 1;; top -= 32) {
+    const int at = top - lane;  // lane 0 is the nearest predecessor
+    unsigned long long w;
+    uint32_t inclusive;
+    int stop;
+    for (;;) {
+      // Below tile 0 counts as an inclusive prefix of 0.
+      w = at >= 0 ? load_word(state + at) : word(kInclusive, 0.0f);
+      const uint32_t st = (uint32_t)(w >> 32);
+      const uint32_t unwritten = __ballot_sync(0xffffffffu, st == 0);
+      inclusive = __ballot_sync(0xffffffffu, st == kInclusive);
+      stop = inclusive ? __ffs(inclusive) - 1 : 31;
+      // Lanes 0 .. stop must be written; beyond stop nothing is read.
+      if ((unwritten & (0xffffffffu >> (31 - stop))) == 0) break;
+    }
+    prefix += warp_sum(lane <= stop ? __uint_as_float((uint32_t)w) : 0.0f);
+    if (inclusive) return prefix;
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+seg_scan_kernel(const float* __restrict__ vals, const int32_t* __restrict__ seg,
+                float* __restrict__ out, unsigned long long* __restrict__ state,
+                unsigned int* __restrict__ ticket, long long n, int n_tiles,
+                int rows) {
+  __shared__ float warp_v[kWarps];
+  __shared__ int warp_f[kWarps];
+  __shared__ float tile_prefix;
+  __shared__ int taken;
+  if (threadIdx.x == 0) taken = (int)atomicAdd(ticket, 1u);
+  __syncthreads();
+  const int tile = taken / rows, row = taken % rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long first = (long long)tile * kTile + threadIdx.x * kItems;
+  const float* in = vals + row * n;
+  float* dst = out + row * n;
+  unsigned long long* words = state + (long long)row * n_tiles;
+
+  // 1. This thread's 8 elements and their start flags, scanned in
+  // registers.  Past n: zeros that start no segment (nothing reads them).
+  float v[kItems];
+  int32_t id[kItems];
+  const bool whole = first + kItems <= n &&
+                     ((uintptr_t)(in + first) & 15) == 0 &&
+                     ((uintptr_t)(dst + first) & 15) == 0 &&
+                     ((uintptr_t)(seg + first) & 15) == 0;
+  if (whole) {
+#pragma unroll
+    for (int j = 0; j < kItems; j += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(in + first + j));
+      const int4 c = __ldg(reinterpret_cast<const int4*>(seg + first + j));
+      v[j] = a.x, v[j + 1] = a.y, v[j + 2] = a.z, v[j + 3] = a.w;
+      id[j] = c.x, id[j + 1] = c.y, id[j + 2] = c.z, id[j + 3] = c.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool in_row = first + j < n;
+      v[j] = in_row ? in[first + j] : 0.0f;
+      id[j] = in_row ? seg[first + j] : 0;
+    }
+  }
+  int start = 0;  // bit j: element j starts a segment
+  {
+    int32_t before = first == 0 ? 0 : (first < n ? seg[first - 1] : 0);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const bool in_row = first + j < n;
+      if (in_row && (first + j == 0 || id[j] != before)) start |= 1 << j;
+      before = id[j];
+    }
+  }
+#pragma unroll
+  for (int j = 1; j < kItems; ++j)
+    if (!(start >> j & 1)) v[j] += v[j - 1];
+
+  // The threads' totals: an exclusive segmented scan over the CTA.
+  float incl = v[kItems - 1];
+  int incl_f = start != 0;
+  warp_seg_scan(incl, incl_f);
+  float before_v = __shfl_up_sync(0xffffffffu, incl, 1);
+  int before_f = __shfl_up_sync(0xffffffffu, incl_f, 1);
+  if (lane == 0) before_v = 0.0f, before_f = 0;
+  if (lane == 31) warp_v[warp] = incl, warp_f[warp] = incl_f;
   __syncthreads();
   if (warp == 0) {
-    float a = wv[lane];  // kBlock / 32 == 32 warps
-    int b = wf[lane];
-    warp_seg_scan(a, b);
-    wv[lane] = a;
-    wf[lane] = b;
+    float total = lane < kWarps ? warp_v[lane] : 0.0f;
+    int total_f = lane < kWarps ? warp_f[lane] : 0;
+    warp_seg_scan(total, total_f);
+    if (lane < kWarps) warp_v[lane] = total, warp_f[lane] = total_f;
+    // 2. Publish the tile's total, then its inclusive prefix.
+    const float aggregate = __shfl_sync(0xffffffffu, total, kWarps - 1);
+    const int any_start = __shfl_sync(0xffffffffu, total_f, kWarps - 1);
+    if (lane == 0)
+      store_word(words + tile,
+                 word(tile == 0 || any_start ? kInclusive : kTotal, aggregate));
+    const float prefix = tile == 0 ? 0.0f : look_back(words, tile);
+    if (lane == 0) {
+      if (tile > 0 && !any_start)
+        store_word(words + tile, word(kInclusive, prefix + aggregate));
+      tile_prefix = prefix;
+    }
   }
   __syncthreads();
+
+  // 3. Add everything before this thread up to its first start and store.
+  float carry = tile_prefix;
   if (warp > 0) {
-    if (!f) v += wv[warp - 1];
-    f |= wf[warp - 1];
+    float wv = warp_v[warp - 1];
+    int wf = warp_f[warp - 1];
+    combine(carry, 0, wv, wf);
+    carry = wv;
   }
-}
-
-__global__ void __launch_bounds__(kBlock)
-seg_scan_blocks(const float* __restrict__ vals, const int32_t* __restrict__ seg,
-                float* __restrict__ out, float* __restrict__ tot_v,
-                int* __restrict__ tot_f, long long n, long long n_blocks) {
-  __shared__ float wv[32];
-  __shared__ int wf[32];
-  const long long row = blockIdx.y;
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  float v = 0.0f;
-  int f = 1;  // past the end: a lone segment that nothing reads
-  if (i < n) {
-    v = vals[row * n + i];
-    f = (i == 0 || seg[i] != seg[i - 1]) ? 1 : 0;
+  combine(carry, 0, before_v, before_f);
+  carry = before_v;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if ((start & ((2 << j) - 1)) == 0) v[j] += carry;
   }
-  block_seg_scan(v, f, wv, wf);
-  if (i < n) out[row * n + i] = v;
-  if (threadIdx.x == kBlock - 1) {
-    tot_v[row * n_blocks + blockIdx.x] = v;
-    tot_f[row * n_blocks + blockIdx.x] = f;
+  if (whole) {
+#pragma unroll
+    for (int j = 0; j < kItems; j += 4)
+      *reinterpret_cast<float4*>(dst + first + j) =
+          make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j)
+      if (first + j < n) dst[first + j] = v[j];
   }
-}
-
-__global__ void __launch_bounds__(kBlock)
-seg_scan_totals(float* __restrict__ tot_v, int* __restrict__ tot_f,
-                long long n_blocks) {
-  __shared__ float wv[32];
-  __shared__ int wf[32];
-  __shared__ float pass_v;
-  __shared__ int pass_f;
-  float* tv = tot_v + (long long)blockIdx.x * n_blocks;
-  int* tf = tot_f + (long long)blockIdx.x * n_blocks;
-  float carry_v = 0.0f;
-  int carry_f = 0;
-  for (long long base = 0; base < n_blocks; base += kBlock) {
-    const long long i = base + threadIdx.x;
-    float v = 0.0f;
-    int f = 1;
-    if (i < n_blocks) {
-      v = tv[i];
-      f = tf[i];
-    }
-    block_seg_scan(v, f, wv, wf);
-    if (!f) v += carry_v;
-    f |= carry_f;
-    if (i < n_blocks) {
-      tv[i] = v;
-      tf[i] = f;
-    }
-    if (threadIdx.x == kBlock - 1) {
-      pass_v = v;
-      pass_f = f;
-    }
-    __syncthreads();
-    carry_v = pass_v;
-    carry_f = pass_f;
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-seg_add_carry(float* __restrict__ out, const int32_t* __restrict__ seg,
-              const float* __restrict__ tot_v, long long n,
-              long long n_blocks) {
-  if (blockIdx.x == 0) return;
-  const long long row = blockIdx.y;
-  const long long first = (long long)blockIdx.x * kBlock;
-  const long long i = first + threadIdx.x;
-  if (i < n && seg[i] == seg[first - 1])
-    out[row * n + i] += tot_v[row * n_blocks + blockIdx.x - 1];
 }
 
 }  // namespace
 
-// vals/out (rows, n) f32, seg (n,) i32 non-decreasing; tot_v (rows,
-// n_blocks) f32 and tot_f (rows, n_blocks) i32 scratch with n_blocks =
-// ceil(n / 1024); all contiguous on the current device.
+// vals/out (rows, n) f32, seg (n,) i32 non-decreasing; state holds
+// rows * ceil(n / 1024) + 1 64-bit words of scratch (the status words and
+// the ticket counter), zeroed here on the stream; all contiguous on the
+// current device.
 extern "C" int spf_segmented_scan(const void* vals, const void* seg,
-                                  void* out, void* tot_v, void* tot_f,
-                                  int rows, long long n, void* stream) {
+                                  void* out, void* state, int rows,
+                                  long long n, void* stream) {
   if (rows <= 0 || n <= 0) return (int)cudaGetLastError();
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  if (n_tiles * rows > INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_blocks = (n + kBlock - 1) / kBlock;
-  const dim3 grid((unsigned)n_blocks, (unsigned)rows);
-  seg_scan_blocks<<<grid, kBlock, 0, s>>>(
+  unsigned long long* words = static_cast<unsigned long long*>(state);
+  const long long n_words = n_tiles * rows;
+  const cudaError_t zeroed =
+      cudaMemsetAsync(words, 0, (n_words + 1) * sizeof(*words), s);
+  if (zeroed != cudaSuccess) return (int)zeroed;
+  seg_scan_kernel<<<(unsigned)n_words, kThreads, 0, s>>>(
       static_cast<const float*>(vals), static_cast<const int32_t*>(seg),
-      static_cast<float*>(out), static_cast<float*>(tot_v),
-      static_cast<int*>(tot_f), n, n_blocks);
-  if (n_blocks > 1) {
-    seg_scan_totals<<<rows, kBlock, 0, s>>>(
-        static_cast<float*>(tot_v), static_cast<int*>(tot_f), n_blocks);
-    seg_add_carry<<<grid, kBlock, 0, s>>>(
-        static_cast<float*>(out), static_cast<const int32_t*>(seg),
-        static_cast<const float*>(tot_v), n, n_blocks);
-  }
+      static_cast<float*>(out), words,
+      reinterpret_cast<unsigned int*>(words + n_words), n, (int)n_tiles, rows);
   return (int)cudaGetLastError();
 }

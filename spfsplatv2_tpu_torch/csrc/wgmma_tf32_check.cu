@@ -112,7 +112,7 @@ wgmma_tf32_check_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     wgmma_fence();
     if constexpr (kPasses == 3) {
-      product3_rs32(d, hi, lo, b_hi, b_lo, kBHalf);
+      product3_rs_k64(d, hi, lo, b_hi, b_lo, kBHalf);
     } else {
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)

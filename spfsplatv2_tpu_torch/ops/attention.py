@@ -9,8 +9,8 @@ three hand-written kernels behind a `torch.autograd.Function`, picked by
 the inputs' dtype (bf16: `csrc/flash_forward.cu`,
 `csrc/flash_backward_dkv.cu`, `csrc/flash_backward_dq.cu`; float32:
 `csrc/flash_f32_forward.cu`, `csrc/flash_f32_backward_dkv.cu`,
-`csrc/flash_f32_backward_dq.cu`, the backward pair on 3xTF32 after the
-split pre-pass `csrc/flash_f32_split.cu`); on CPU tensors their plain
+`csrc/flash_f32_backward_dq.cu`, all three on 3xTF32, each after a split
+pre-pass in `csrc/flash_f32_split.cu`); on CPU tensors their plain
 version, the dense form.  The view-masked attention stays dense below
 `chunked_min_kv` keys and is computed in query chunks above it, as in
 JAX (no kernel there).
@@ -134,7 +134,7 @@ def flash_forward_cuda(q, k, v, scale):
     _require_cuda(tensors)
     bh = _check_flash_inputs(tensors, n_q, n_k)
     scale = float(scale)
-    # The bf16 kernel takes a positive scale (its row max is over the raw
+    # The kernels take a positive scale (their row max is over the raw
     # logits); any other is folded into q, exactly in either dtype.
     if scale < 0:
         q, scale = -q, -scale
@@ -143,6 +143,11 @@ def flash_forward_cuda(q, k, v, scale):
     name = FLASH_KERNELS[q.dtype][0]
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        # The float32 kernel reads K and V as the forward split pre-pass's
+        # planes (it splits q itself).
+        sp = flash_f32_split_forward_cuda(k, v)
+        k, v = sp["k_hl"], sp["v_t"]
     err = getattr(cuda_lib.library(name), f"spf_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         bh, n_q, n_k, scale, cuda_lib.stream_handle(q.device))
@@ -185,12 +190,14 @@ def _check_backward_inputs(q, k, v, do, lse, di) -> int:
     return bh
 
 
-# The split pre-pass of K5's float32 backward (`csrc/flash_f32_split.cu`):
-# the products of the float32 backward pair run on the tensor cores as
-# 3xTF32, with each operand split into hi = tf32(x) and lo = tf32(x - hi).
-# Transposed operands have their n axis permuted inside each group of 8:
-# position L holds row TF32_K_ORDER[L], the order in which a tf32
-# accumulator's columns make up the next product's A fragment.
+# The split pre-passes of K5's float32 kernels (`csrc/flash_f32_split.cu`):
+# their products run on the tensor cores as 3xTF32, with each operand
+# split into hi = tf32(x) and lo = tf32(x - hi).  Transposed operands have
+# their n axis permuted inside each group of 8: position L holds row
+# TF32_K_ORDER[L], the order in which a tf32 accumulator's columns make up
+# the next product's A fragment.  The backward's pass splits q, k, v and
+# dO as they lie and q, k, dO transposed; the forward's k as it lies and v
+# transposed (the forward kernel splits q in registers).
 TF32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 F32_SPLIT_AS_LAID = ("q", "k", "v", "do")
 F32_SPLIT_TRANSPOSED = ("q", "k", "do")
@@ -218,22 +225,35 @@ def _transposed_order(n: int, device) -> torch.Tensor:
     return (torch.arange(0, n8, 8, device=device)[:, None] + order).reshape(-1)
 
 
-def flash_f32_split_plain(q, k, v, do) -> dict:
-    """The plain version of the split pre-pass on (b, h, n, 64) float32:
-    `<name>_hl` (2, b*h, n, 64), the hi and lo planes of q, k, v and dO as
-    they lie; `<name>_t` (2, b*h, 64, n8), those of q, k and dO
-    transposed, padded with zero rows to n8 and permuted (TF32_K_ORDER).
-    Bit for bit what the kernel writes."""
+def _split_planes(tensors: dict, as_laid, transposed) -> dict:
     out = {}
-    for name, x in zip(F32_SPLIT_AS_LAID, (q, k, v, do)):
+    for name, x in tensors.items():
         b, h, n, d = x.shape
         hl = _split_hl(x.reshape(b * h, n, d).float())
-        out[f"{name}_hl"] = hl
-        if name in F32_SPLIT_TRANSPOSED:
+        if name in as_laid:
+            out[f"{name}_hl"] = hl
+        if name in transposed:
             order = _transposed_order(n, x.device)
             padded = torch.nn.functional.pad(hl, (0, 0, 0, len(order) - n))
             out[f"{name}_t"] = padded[:, :, order].transpose(2, 3).contiguous()
     return out
+
+
+def flash_f32_split_plain(q, k, v, do) -> dict:
+    """The plain version of the backward's split pre-pass on (b, h, n, 64)
+    float32: `<name>_hl` (2, b*h, n, 64), the hi and lo planes of q, k, v
+    and dO as they lie; `<name>_t` (2, b*h, 64, n8), those of q, k and dO
+    transposed, padded with zero rows to n8 and permuted (TF32_K_ORDER).
+    Bit for bit what the kernel writes."""
+    return _split_planes({"q": q, "k": k, "v": v, "do": do},
+                         F32_SPLIT_AS_LAID, F32_SPLIT_TRANSPOSED)
+
+
+def flash_f32_split_forward_plain(k, v) -> dict:
+    """The plain version of the forward's split pre-pass: `k_hl` and `v_t`,
+    laid out as in `flash_f32_split_plain`.  Bit for bit what the kernel
+    writes."""
+    return _split_planes({"k": k, "v": v}, ("k",), ("v",))
 
 
 def flash_f32_split_cuda(q, k, v, do) -> dict:
@@ -260,6 +280,31 @@ def flash_f32_split_cuda(q, k, v, do) -> dict:
         bh, n_q, n_k, cuda_lib.stream_handle(q.device))
     cuda_lib.launch_counts[name] += 1
     cuda_lib.check(err, name)
+    return out
+
+
+def flash_f32_split_forward_cuda(k, v) -> dict:
+    """Launch the forward's split pre-pass on contiguous (b, h, n_k, 64)
+    float32 CUDA tensors; returns the planes of
+    `flash_f32_split_forward_plain`."""
+    _require_cuda({"k": k, "v": v})
+    if k.ndim != 4:
+        raise ValueError(f"k: expected (b, h, n, {HEAD_DIM}), got "
+                         f"{tuple(k.shape)}")
+    b, h, n_k, _ = k.shape
+    for name, x in (("k", k), ("v", v)):
+        _require_f32(x, name, (b, h, n_k, HEAD_DIM), k.device)
+    bh = b * h
+    n8 = -(-n_k // 8) * 8
+    out = {"k_hl": torch.empty((2, bh, n_k, HEAD_DIM), dtype=torch.float32,
+                               device=k.device),
+           "v_t": torch.empty((2, bh, HEAD_DIM, n8), dtype=torch.float32,
+                              device=k.device)}
+    err = cuda_lib.library("flash_f32_split").spf_flash_f32_split_forward(
+        k.data_ptr(), v.data_ptr(), out["k_hl"].data_ptr(),
+        out["v_t"].data_ptr(), bh, n_k, cuda_lib.stream_handle(k.device))
+    cuda_lib.launch_counts["flash_f32_split_forward"] += 1
+    cuda_lib.check(err, "flash_f32_split_forward")
     return out
 
 
@@ -326,10 +371,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K5 as a differentiable function: the forward kernel saves O and the
-    rows' log-sum-exp; the backward computes di = rowsum(dO * O) in
-    float32 (outside any kernel, as JAX does) and launches the dK/dV and
-    dQ kernels (for float32 after one split pre-pass that both read)."""
+    """K5 as a differentiable function: the forward kernel (for float32
+    after its own split pre-pass) saves O and the rows' log-sum-exp; the
+    backward computes di = rowsum(dO * O) in float32 (outside any kernel,
+    as JAX does) and launches the dK/dV and dQ kernels (for float32 after
+    one split pre-pass that both read)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):

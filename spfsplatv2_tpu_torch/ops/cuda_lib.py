@@ -45,7 +45,7 @@ SIGNATURES = {
         "spf_composite_backward": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     },
     "segmented_scan": {
-        "spf_segmented_scan": [_P, _P, _P, _P, _P, _I, _L, _P],
+        "spf_segmented_scan": [_P, _P, _P, _P, _I, _L, _P],
     },
     "flash_forward": {
         "spf_flash_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
@@ -61,6 +61,7 @@ SIGNATURES = {
     },
     "flash_f32_split": {
         "spf_flash_f32_split": [_P] * 11 + [_I, _I, _I, _P],
+        "spf_flash_f32_split_forward": [_P] * 4 + [_I, _I, _P],
     },
     "flash_f32_backward_dkv": {
         "spf_flash_f32_backward_dkv": [_P] * 10 + [_I, _I, _I, _F, _P],
@@ -83,7 +84,8 @@ SIGNATURES = {
 launch_counts: dict[str, int] = {
     "composite_forward": 0, "composite_backward": 0, "cumsum_1d": 0,
     "segmented_scan": 0, "flash_forward": 0, "flash_backward_dkv": 0,
-    "flash_backward_dq": 0, "flash_f32_forward": 0, "flash_f32_split": 0,
+    "flash_backward_dq": 0, "flash_f32_forward": 0,
+    "flash_f32_split_forward": 0, "flash_f32_split": 0,
     "flash_f32_backward_dkv": 0, "flash_f32_backward_dq": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,7 @@ import torch
 
 from spfsplatv2_tpu_torch.ops import cuda_lib
 
-BLOCK = 1024  # elements per CTA in csrc/segmented_scan.cu
+SEG_TILE = 1024  # elements per CTA in csrc/segmented_scan.cu
 SCAN_TILE = 8192  # elements per CTA in csrc/prefix_scan.cu
 _FUNCTIONS = {torch.int32: "spf_cumsum_i32", torch.float32: "spf_cumsum_f32"}
 # K3's look-back status words, one buffer per (device, stream), and the
@@ -96,12 +96,14 @@ def segmented_scan_lanes_cuda(vals: torch.Tensor, seg: torch.Tensor) -> torch.Te
     if seg.shape[0] != n:
         raise ValueError(f"seg has {seg.shape[0]} ids for {n} lanes")
     out = torch.empty_like(vals)
-    n_blocks = max(-(-n // BLOCK), 1)
-    tot_v = torch.empty((rows, n_blocks), dtype=torch.float32, device=vals.device)
-    tot_f = torch.empty((rows, n_blocks), dtype=torch.int32, device=vals.device)
+    # The look-back's status words, one a (row, tile), and its ticket
+    # counter; the kernel's C entry zeroes them on the stream, so the call
+    # can be captured in a CUDA graph.
+    state = torch.empty(rows * -(-n // SEG_TILE) + 1, dtype=torch.int64,
+                        device=vals.device)
     fn = cuda_lib.library("segmented_scan").spf_segmented_scan
-    err = fn(vals.data_ptr(), seg.data_ptr(), out.data_ptr(), tot_v.data_ptr(),
-             tot_f.data_ptr(), rows, n, cuda_lib.stream_handle(vals.device))
+    err = fn(vals.data_ptr(), seg.data_ptr(), out.data_ptr(), state.data_ptr(),
+             rows, n, cuda_lib.stream_handle(vals.device))
     cuda_lib.launch_counts["segmented_scan"] += 1
     cuda_lib.check(err, "segmented_scan")
     return out

@@ -21,6 +21,8 @@ from spfsplatv2_tpu_torch.ops.attention import (
     flash_backward_dq_cuda,
     flash_backward_dq_plain,
     flash_f32_split_cuda,
+    flash_f32_split_forward_cuda,
+    flash_f32_split_forward_plain,
     flash_f32_split_plain,
     flash_forward_cuda,
     flash_forward_plain,
@@ -42,6 +44,7 @@ from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
 from spfsplatv2_tpu_torch.ops import segscan
 from spfsplatv2_tpu_torch.ops.segscan import (
     SCAN_TILE,
+    SEG_TILE,
     cumsum_1d_cuda,
     scan_state,
     segmented_scan_lanes_cuda,
@@ -89,6 +92,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_backward_dkv_cuda(*qkv, *stats, 0.125)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_backward_dq_cuda(*qkv, *stats, 0.125)
+    f32 = [t.float() for t in qkv[:2]]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_f32_split_forward_cuda(*f32)
 
 
 @pytest.mark.parametrize("case", ["bfloat16", "float32", "mixed_dtypes",
@@ -399,19 +405,77 @@ def _adversarial(seed, n):
     return adversarial_entries(seed, n, finite_only=True)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 1000, 1024, 5000, 524416])
-def test_segmented_scan_kernel_matches_plain(cuda_device, n):
-    rng = np.random.default_rng(n)
-    vals = torch.from_numpy(rng.standard_normal((10, n)).astype(np.float32))
-    seg = torch.from_numpy(np.sort(rng.integers(0, max(n // 4, 1), n))
-                           .astype(np.int32))
-    vals, seg = vals.to(cuda_device), seg.to(cuda_device)
+def _check_segmented_scan(vals, seg):
+    """K4 on (vals, seg) against its plain version, within 1e-5 of the
+    running sum of |x| (both sum in float32 in different orders)."""
     out = segmented_scan_lanes_cuda(vals, seg)
     torch.cuda.synchronize()
     ref = segmented_scan_lanes_plain(vals, seg)
     scale = segmented_scan_lanes_plain(vals.abs(), seg)
     assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 1024, 5000, SEG_TILE - 1,
+                               SEG_TILE + 1, 2 * SEG_TILE,
+                               3 * SEG_TILE + 1, 4 * SEG_TILE - 1, 524416])
+def test_segmented_scan_kernel_matches_plain(cuda_device, n):
+    """K4 on ten rows with short random segments, at both sides of its
+    1024-element tile and one and two tiles on, and at the flagship's
+    e_pad = 524416."""
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.standard_normal((10, n)).astype(np.float32))
+    seg = torch.from_numpy(np.sort(rng.integers(0, max(n // 4, 1), n))
+                           .astype(np.int32))
+    _check_segmented_scan(vals.to(cuda_device), seg.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["one_segment", "three_tile_segments",
+                                    "tile_aligned_starts"])
+def test_segmented_scan_long_segments(cuda_device, layout):
+    """K4 where the look-back must walk: one segment over the whole row
+    (33 tiles, more than one window of 32 status words, none with a
+    start), segments of 3.5 tiles, and segments that start exactly on a
+    tile's first element."""
+    n = 33 * SEG_TILE + 5
+    rng = np.random.default_rng(11)
+    vals = torch.from_numpy(rng.standard_normal((10, n)).astype(np.float32))
+    pos = np.arange(n)
+    seg = {"one_segment": np.zeros(n),
+           "three_tile_segments": pos // (7 * SEG_TILE // 2),
+           "tile_aligned_starts": pos // SEG_TILE}[layout]
+    _check_segmented_scan(vals.to(cuda_device),
+                          torch.from_numpy(seg.astype(np.int32))
+                          .to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_segmented_scan_in_cuda_graph(cuda_device):
+    """K4 captured in a CUDA graph (its status words are zeroed on the
+    stream inside the call, so it needs no host state): each replay on
+    new values in the captured input gives the plain result."""
+    n = 3 * SEG_TILE + 77
+    rng = np.random.default_rng(12)
+    vals = torch.zeros((10, n), device=cuda_device)
+    seg = torch.from_numpy(np.sort(rng.integers(0, n // 50, n)).astype(
+        np.int32)).to(cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        segmented_scan_lanes_cuda(vals, seg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segmented_scan_lanes_cuda(vals, seg)
+    for _ in range(3):
+        vals.copy_(torch.from_numpy(
+            rng.standard_normal((10, n)).astype(np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = segmented_scan_lanes_plain(vals, seg)
+        scale = segmented_scan_lanes_plain(vals.abs(), seg)
+        assert bool(((out - ref).abs() <= 1e-5 * scale + 1e-6).all())
 
 
 @pytest.mark.cuda
@@ -508,18 +572,19 @@ def test_flash_kernels_match_plain(cuda_device, n_q, n_k):
                           (64, 1), (63, 65), (65, 63), (130, 4098),
                           (4098, 127), (4098, 129), (31, 389), (32, 389),
                           (33, 389), (300, 31), (300, 32), (300, 33),
-                          (127, 300), (129, 300)])
+                          (127, 300), (129, 300), (128, 64), (255, 300),
+                          (257, 300), (300, 191), (300, 193)])
 def test_flash_f32_kernels_match_plain(cuda_device, n_q, n_k):
     """K5's float32 kernels (csrc/flash_f32_*.cu) against their plain
     versions at ragged lengths: O and lse within 2e-5 of their max, dQ,
-    dK and dV within 1e-4 (the backward pair's 3xTF32 products keep
-    float32 accuracy; float32 sums in another order).  The forward takes
-    64 query rows a CTA and 64-key tiles; the dK/dV kernel 128 keys a CTA
-    (64 a warpgroup) and 32-query tiles; the dQ kernel 128 query rows a
-    CTA (64 a warpgroup) and 32-key tiles: (63, 65), (65, 63), (4098,
-    127-129), n_q of 31-33, n_k of 31-33 and n_q of 127 and 129 end at
-    both sides of a tile; with one key dQ and dK are zero up to rounding
-    and held within 1e-4 absolute."""
+    dK and dV within 1e-4 (the 3xTF32 products keep float32 accuracy;
+    float32 sums in another order).  The forward takes 128 query rows a
+    CTA (64 a warpgroup) and 64-key tiles; the dK/dV kernel 128 keys a
+    CTA (64 a warpgroup) and 32-query tiles; the dQ kernel 128 query rows
+    a CTA (64 a warpgroup) and 32-key tiles: (63, 65), (65, 63), (4098,
+    127-129), n_q of 31-33, 127-129 and 255-257, n_k of 31-33 and 191-193
+    end at both sides of a tile, (128, 64) on one; with one key dQ and dK
+    are zero up to rounding and held within 1e-4 absolute."""
     _check_flash_kernels(cuda_device, 1, 3, n_q, n_k, torch.float32)
 
 
@@ -538,6 +603,19 @@ def test_flash_f32_kernels_across_heads_and_scales(cuda_device):
         assert _within(o, o_p, 2e-5)
         assert float((lse - lse_p).abs().max()) <= 2e-5 * float(
             lse_p.abs().max())
+
+
+@pytest.mark.cuda
+def test_flash_f32_forward_is_deterministic(cuda_device):
+    """The float32 forward writes each row once and sums its key tiles in
+    a fixed order: two launches (each with its split pre-pass) on the same
+    inputs give the same bits of O and lse."""
+    q, k, v, _ = _flash_inputs(cuda_device, 2, 3, 4098, 4098, seed=3,
+                               dtype=torch.float32)
+    runs = [flash_forward_cuda(q, k, v, 0.125) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -565,20 +643,25 @@ def test_flash_f32_backward_is_deterministic(cuda_device):
 @pytest.mark.parametrize("n_q,n_k", [(4098, 4098), (300, 389), (5, 13),
                                      (64, 1)])
 def test_flash_f32_split_matches_plain(cuda_device, n_q, n_k):
-    """The split pre-pass (csrc/flash_f32_split.cu) writes bit for bit
-    what its plain version computes: the hi and lo tf32 planes of q, k, v
-    and dO as they lie, and those of q, k and dO transposed, padded with
-    zeros to a multiple of 8 rows and permuted inside each group of 8."""
+    """The split pre-passes (csrc/flash_f32_split.cu) write bit for bit
+    what their plain versions compute: the backward's, the hi and lo tf32
+    planes of q, k, v and dO as they lie, and those of q, k and dO
+    transposed, padded with zeros to a multiple of 8 rows and permuted
+    inside each group of 8; the forward's, those of k as it lies and of v
+    transposed.  Each counts one launch."""
     q, k, v, do = _flash_inputs(cuda_device, 2, 3, n_q, n_k, seed=5,
                                 dtype=torch.float32)
     cuda_lib.reset_launch_counts()
     got = flash_f32_split_cuda(q, k, v, do)
+    got_fwd = flash_f32_split_forward_cuda(k, v)
     assert cuda_lib.launch_counts["flash_f32_split"] == 1
+    assert cuda_lib.launch_counts["flash_f32_split_forward"] == 1
     torch.cuda.synchronize()
-    want = flash_f32_split_plain(q, k, v, do)
-    assert sorted(got) == sorted(want)
-    for name in want:
-        assert torch.equal(got[name], want[name]), name
+    for got, want in ((got, flash_f32_split_plain(q, k, v, do)),
+                      (got_fwd, flash_f32_split_forward_plain(k, v))):
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
 
 
 @pytest.mark.cuda
@@ -742,8 +825,8 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
 @pytest.mark.cuda
 def test_flash_f32_autograd_matches_dense(cuda_device):
     """The autograd function on float32 inputs launches the three float32
-    kernels and the backward's split pre-pass once each (and no bf16
-    one) and matches autograd through the
+    kernels and the forward's and the backward's split pre-passes once
+    each (and no bf16 one) and matches autograd through the
     dense form in float32 within 1e-4 of each max; mixed dtypes raise."""
     q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1,
                                 dtype=torch.float32)
@@ -755,6 +838,7 @@ def test_flash_f32_autograd_matches_dense(cuda_device):
               if n.startswith("flash")}
     assert counts == {"flash_forward": 0, "flash_backward_dkv": 0,
                       "flash_backward_dq": 0, "flash_f32_forward": 1,
+                      "flash_f32_split_forward": 1,
                       "flash_f32_split": 1, "flash_f32_backward_dkv": 1,
                       "flash_f32_backward_dq": 1}
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]

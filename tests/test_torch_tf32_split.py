@@ -1,14 +1,16 @@
-"""The 3xTF32 arithmetic of K5's float32 backward pair, on the CPU.
+"""The 3xTF32 arithmetic of K5's float32 kernels, on the CPU.
 
-The kernels (`csrc/flash_f32_backward_{dkv,dq}.cu`) run every product on
-the tensor cores with tf32 operands: each float32 operand x is split into
-hi = tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`), and a product is
+The kernels (`csrc/flash_f32_forward.cu`,
+`csrc/flash_f32_backward_{dkv,dq}.cu`) run every product on the tensor
+cores with tf32 operands: each float32 operand x is split into hi =
+tf32(x) and lo = tf32(x - hi) (`cvt.rna.tf32.f32`), and a product is
 lo*hi + hi*lo + hi*hi summed in float32.  Here `attention.tf32_round`
-emulates the rounding with integer bit operations, and the backward pair
-is computed with every product split that way, to show where there is no
-GPU that the scheme meets the bars the card holds the kernels to, and
-that one pass (hi*hi) does not.  The split pre-pass's plain version
-(`flash_f32_split_plain`) is checked for its layout.
+emulates the rounding with integer bit operations, and the forward and
+the backward pair are computed with every product split that way, to
+show where there is no GPU that the scheme meets the bars the card holds
+the kernels to, and that one pass (hi*hi) does not.  The split
+pre-passes' plain versions (`flash_f32_split_plain`,
+`flash_f32_split_forward_plain`) are checked for their layout.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from spfsplatv2_tpu_torch.ops.attention import (
     TF32_K_ORDER,
+    flash_f32_split_forward_plain,
     flash_f32_split_plain,
     flash_forward_plain,
     tf32_round,
@@ -24,7 +27,7 @@ from spfsplatv2_tpu_torch.ops.attention import (
 
 # The kernels' bars against the plain versions, as fractions of max |ref|
 # (chip_smoke.py K5_TOLS["float32"], tests/test_torch_kernels.py).
-GRAD_TOL = 1e-4
+OUT_TOL, GRAD_TOL = 2e-5, 1e-4
 
 
 def test_tf32_round_is_cvt_rna():
@@ -67,6 +70,44 @@ def _backward(q, k, v, do, lse, di, scale, passes):
     return {"dq": dq, "dk": dk, "dv": dv}
 
 
+def _inputs(shape, seed):
+    b, h, n_q, n_k = shape
+    rng = np.random.default_rng(seed)
+    make = lambda n: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, h, n, 64)).astype(np.float32))
+    return make(n_q), make(n_k), make(n_k), make(n_q)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 256, 256), (1, 2, 200, 333)],
+                         ids=["256", "ragged"])
+def test_split_forward_meets_the_kernels_bars(shape):
+    """The forward kernel's arithmetic at the backward test's seeded
+    shapes: S = Q K^T split, the softmax in float32, P and V split for
+    O = P V, O / l and lse = m + log l.  Three passes land within 2e-5 of
+    max of the float64 softmax attention for O and lse; one pass errs at
+    least 10x more."""
+    q, k, v, _ = _inputs(shape, 7)
+    scale = 0.125
+    q64, k64, v64 = (t.double() for t in (q, k, v))
+    s64 = q64 @ k64.transpose(-1, -2) * scale
+    ref = {"o": torch.softmax(s64, dim=-1) @ v64,
+           "lse": torch.logsumexp(s64, dim=-1)}
+
+    errs = {}
+    for passes in (3, 1):
+        s = _mm(q, k.transpose(-1, -2), passes) * scale
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        got = {"o": _mm(p, v, passes) / l, "lse": (m + torch.log(l))[..., 0]}
+        errs[passes] = {name: float((got[name].double() - ref[name]).abs()
+                                    .max() / ref[name].abs().max())
+                        for name in ref}
+    for name in ref:
+        assert errs[3][name] <= OUT_TOL, (name, errs)
+        assert errs[1][name] >= 10 * errs[3][name], (name, errs)
+
+
 @pytest.mark.parametrize("shape", [(1, 2, 256, 256), (1, 2, 200, 333)],
                          ids=["256", "ragged"])
 def test_split_backward_meets_the_kernels_bars(shape):
@@ -74,11 +115,7 @@ def test_split_backward_meets_the_kernels_bars(shape):
     n_q != n_k), with lse and di from the float32 forward as the kernels
     get them: three passes land within 1e-4 of max of the float64 plain
     backward for dQ, dK and dV; one pass errs at least 10x more."""
-    b, h, n_q, n_k = shape
-    rng = np.random.default_rng(7)
-    make = lambda n: torch.from_numpy(  # noqa: E731
-        rng.standard_normal((b, h, n, 64)).astype(np.float32))
-    q, k, v, do = make(n_q), make(n_k), make(n_k), make(n_q)
+    q, k, v, do = _inputs(shape, 7)
     scale = 0.125
     o, lse = flash_forward_plain(q, k, v, scale)
     di = (do * o).sum(-1)
@@ -104,11 +141,12 @@ def test_split_backward_meets_the_kernels_bars(shape):
 
 
 def test_split_plain_layout():
-    """The plain pre-pass: hi + lo is x within 2^-22; the transposed
+    """The plain pre-passes: hi + lo is x within 2^-22; the transposed
     planes hold x's rows in TF32_K_ORDER inside each group of 8, zeros
-    past n; and a product over that permuted axis, with A's columns taken
-    in the same order (as an accumulator becomes an A fragment), is the
-    plain product."""
+    past n; a product over that permuted axis, with A's columns taken in
+    the same order (as an accumulator becomes an A fragment), is the plain
+    product; and the forward's pass writes k's planes as the backward's
+    does and v's transposed planes in the same layout."""
     rng = np.random.default_rng(3)
     n = 13
     x = torch.from_numpy(rng.standard_normal((1, 2, n, 64)).astype(
@@ -133,3 +171,9 @@ def test_split_plain_layout():
     got = a16[:, order] @ b_t.T
     want = a @ hl[0, 0].double()
     assert torch.allclose(got, want, rtol=0, atol=1e-12)
+    v = torch.from_numpy(rng.standard_normal((1, 2, n, 64)).astype(
+        np.float32))
+    fwd = flash_f32_split_forward_plain(x, v)
+    assert sorted(fwd) == ["k_hl", "v_t"]
+    assert torch.equal(fwd["k_hl"], hl)
+    assert torch.equal(fwd["v_t"], flash_f32_split_plain(v, v, v, v)["k_t"])
