@@ -19,6 +19,8 @@ Phases, each printing JSON lines:
   4. K1 (`composite_forward`, csrc/composite_forward.cu) against its plain
      version on a pixel-aligned 131072-Gaussian scene at 256^2, binned by
      the port, and against the dense oracle on a 64^2 scene;
+     "tiled_256": one render of that scene through the "tiled" backend
+     (plain torch, no kernel) against "prefix" (K1, K3), both timed;
   5. the main path: the full-width `spfsplatv2` encoder (ViT-L 24x1024,
      decoders 2x12x768, DPT 256/128, SH degree 4, bf16 compute) from a
      seeded random init, serving 3 requests (2 context views + 1 target
@@ -99,6 +101,15 @@ Phases, each printing JSON lines:
      "K5_f32_train", the float32 backward pair (and its split) at the
      shapes those steps gave it, two launches bit-identical, and the
      forward (and its split) at the same shapes beside SDPA's forward;
+     "demo_1024", the demo (`spfsplatv2_tpu_torch.demo.run_demo`) in
+     process on two seeded 1152 x 1536 photos at --image-size 1024 from a
+     seeded init of the flagship (bf16): launch counts read around
+     exactly that call (96 bf16 K5 forward, 60 K1, 120 K3, no other),
+     the poses, the PLY read back (2 x 1024^2 vertices), the GIF's 118
+     frames of 1024^2, the first frame's render against the plain
+     versions of K1 and K3 on the card, and the encoder passes', the
+     60-frame render's, the PLY's and the GIF's times and the peak
+     memory;
  14. the command line, `spfsplatv2_tpu_torch.main.main([...])` in process
      with `--config experiments/spfsplatv2/re10k.yaml` and overrides only
      (phases "cli_*"): synthetic train, val and test chunks written under
@@ -107,11 +118,13 @@ Phases, each printing JSON lines:
      validation, the final checkpoint ("cli_train": step times, data
      waits, the guard's probes, K1-K3 launches against the count the
      steps, probes and validation render, the checkpoint's seconds and
-     bytes); the guard alone under a budget below the step's peak, which
-     must halve the microbatch and take no step ("cli_guard"); mode=test
-     from that checkpoint with images saved and seeded LPIPS, the five
-     artifact files, the first saved PNG read back against its frame
-     ("cli_test"); mode=eval_pose with the native PnP library built by
+     bytes, the validation's interpolation and wobble GIFs of 58 frames,
+     and no "validation video skipped" line); the guard alone under a
+     budget below the step's peak, which must halve the microbatch and
+     take no step ("cli_guard"); mode=test from that checkpoint with
+     images and videos saved and seeded LPIPS, the five artifact files,
+     the first saved PNG read back against its frame, each scene's GIF of
+     its target frames ("cli_test"); mode=eval_pose with the native PnP library built by
      g++ ("cli_eval_pose");
  19. the VGGT-1B family at full width: the encoder of
      experiments/spfsplatv2-l/re10k.yaml (DINOv2 24x1024, 24 frame and
@@ -143,6 +156,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -238,6 +252,19 @@ FLAGSHIP_CONVS = {
     "DPTGSHead.head_conv": (256, 256, 3, {256: 256, 1024: 1024}),
 }
 FLAGSHIP_CONV_MAPS = {256: (1, 2, 16), 1024: (1, 2)}
+# The validation step's two context videos (interpolation and wobble),
+# 30 frames rendered each, written there and back (30 + 28 frames).
+VAL_VIDEO_FRAMES = 30
+# The demo (phase "demo_1024"): two seeded 1152 x 1536 photos (h x w,
+# so the centre crop and the resize both run) at --image-size 1024, no
+# checkpoint, the flagship's SPFSplatV2Config(); its 60-frame
+# interpolation video is written there and back (60 + 58 frames).
+DEMO_PHOTO_HW, DEMO_SIZE, DEMO_FRAMES = (1152, 1536), 1024, 60
+# The seeded init's pose heads start at the identity (as JAX's), so both
+# views get the same pose and the video one still frame, which the GIF
+# writer merges; view 1's pose head gets this translation bias.
+DEMO_BASELINE = 0.3
+PLY_FLOATS = 17  # xyz, normals, DC colour, opacity, 3 scales, 4 rotation
 
 
 def emit(obj: dict) -> None:
@@ -246,6 +273,59 @@ def emit(obj: dict) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def run_cli(cli, argv: list) -> int:
+    """`cli.main(argv)` in process, its standard output passed through;
+    fails if the validation step reports a skipped video (the loop goes
+    on without it, so the check is here)."""
+    out, kept = sys.stdout, io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            kept.write(text)
+            return out.write(text)
+
+        def flush(self):
+            out.flush()
+
+    with contextlib.redirect_stdout(Tee()):
+        rc = cli.main(argv)
+    skipped = [line for line in kept.getvalue().splitlines()
+               if "validation video skipped" in line]
+    if skipped:
+        fail(f"{' '.join(argv[-3:])}: {skipped}")
+    return rc
+
+
+def gif_frames(path: Path) -> tuple:
+    """(frames, (width, height)) of a GIF.  The GIF writer merges a frame
+    identical to the one before it into that one: a video of a model
+    that has barely trained (its poses near the identity, where its pose
+    heads start) holds fewer frames than it rendered, so the phases of
+    such models check the frames rendered by the launch counts."""
+    from PIL import Image
+
+    with Image.open(path) as gif:
+        return gif.n_frames, gif.size
+
+
+class Timer:
+    """Host-clock spans around work that ends in a synchronize, by name."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.spans = torch, dev, {}
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize(self.dev)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize(self.dev)
+            self.spans.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+
+        return timed
 
 
 def nvidia_smi_line() -> str:
@@ -1349,7 +1429,7 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = cli.main(argv)
+        rc = run_cli(cli, argv)
     finally:
         for name, fn in real.items():
             setattr(loop, name, fn)
@@ -1403,6 +1483,13 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
     if rc != 0 or test_counts != want or not scores.exists():
         fail(f"vggt_cli test: rc {rc}, launches {test_counts} (expected "
              f"{want})")
+    val_videos = {str(path.relative_to(root)): gif_frames(path)
+                  for path in sorted((out_dir / "validation").glob("*/*.gif"))}
+    size = tuple(load_config([repo / VGGT_PRESET], overrides).image_shape)
+    if len(val_videos) != 2 * len(list((out_dir / "validation").iterdir())) \
+            or not all(1 <= n <= 2 * VAL_VIDEO_FRAMES - 2 and wh == size[::-1]
+                       for n, wh in val_videos.values()):
+        fail(f"vggt_cli validation videos {val_videos}")
     avg = json.loads(scores.read_text())
     if not all(np.isfinite(v) for k, v in avg.items()
                if isinstance(v, float)):
@@ -1413,13 +1500,140 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
           "val": {k: v for m in logged.values() for k, v in m.items()
                   if k.startswith("val/")},
           "train_launches": train_counts, "step_launches": step_counts,
-          "checkpoint_save": saves[0],
+          "checkpoint_save": saves[0], "validation_videos_frames_size": val_videos,
           "checkpoint_load_s": load_s, "test_launches": test_counts,
           "averages": avg,
           "request_times": json.loads((test_dir / "benchmark.json").read_text()),
           "peak_memory": json.loads((test_dir / "peak_memory.json").read_text())})
     shutil.rmtree(out_dir)
     return {"vggt_cli_train": train_counts, "vggt_cli_test": test_counts}
+
+
+def demo_phase(torch, repo: Path, dev) -> dict:
+    """Phase "demo_1024": `demo.run_demo` in process on two seeded photos
+    at 1024^2 from a seeded init (view 1 placed DEMO_BASELINE to the
+    side, so that the video moves), with the launch counts read around
+    exactly that call; its outputs checked, its first video frame's
+    render held against the same render through the plain versions of K1
+    and K3 on the card; returns the counts and that check."""
+    import numpy as np
+    from PIL import Image
+
+    from spfsplatv2_tpu_torch import demo
+    from spfsplatv2_tpu_torch.evaluation import video
+    from spfsplatv2_tpu_torch.models.decoder import decode_splatting
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.utils import ply_export
+
+    t_phase = time.perf_counter()
+    root = repo / "build" / "demo"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    h, w = DEMO_PHOTO_HW
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    paths = []
+    for i in range(2):
+        img = np.stack([xx + 0.1 * i, yy, 0.5 + 0.4 * np.sin(20 * xx * yy)], -1)
+        img = np.clip(img + 0.05 * rng.standard_normal(img.shape), 0, 1)
+        paths.append(str(root / f"photo_{i}.png"))
+        Image.fromarray((img * 255).astype(np.uint8)).save(paths[-1])
+
+    timer, recorded = Timer(torch, dev), []
+    real = {"build_encoder": demo.build_encoder,
+            "decode_splatting": video.decode_splatting,
+            "save_video": video.save_video,
+            "export_ply": ply_export.export_ply}
+
+    def build_encoder(*args, **kwargs):
+        encoder = timer.wrap("encoder_init", real["build_encoder"])(*args,
+                                                                    **kwargs)
+        with torch.no_grad():
+            encoder.pose_head2.fc_t.bias[0] += DEMO_BASELINE
+        encoder.forward = timer.wrap("encoder", encoder.forward)
+        return encoder
+
+    def decode(*args):
+        recorded.append(args)
+        return timer.wrap("render", real["decode_splatting"])(*args)
+
+    demo.build_encoder, video.decode_splatting = build_encoder, decode
+    video.save_video = timer.wrap("gif_write", real["save_video"])
+    ply_export.export_ply = timer.wrap("ply_write", real["export_ply"])
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = demo.run_demo(paths, None, str(root / "out"), DEMO_SIZE,
+                               device=dev)
+    finally:
+        demo.build_encoder = real["build_encoder"]
+        video.decode_splatting = real["decode_splatting"]
+        video.save_video = real["save_video"]
+        ply_export.export_ply = real["export_ply"]
+    run_s = time.perf_counter() - t0
+    counts = dict(cuda_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # Two encoder passes (the demo's, then the video's on the context),
+    # 48 K5 forward launches each; one K1 and two K3 a video frame.
+    on_path = {"flash_forward": 2 * K5_PER_PASS,
+               "composite_forward": DEMO_FRAMES, "cumsum_1d": 2 * DEMO_FRAMES}
+    off_path = {k: v for k, v in counts.items() if k not in on_path}
+    if {k: counts.get(k, 0) for k in on_path} != on_path or any(
+            off_path.values()):
+        fail(f"demo_1024 launch counts {counts}, expected {on_path} and 0 "
+             "elsewhere")
+    poses = np.asarray(result["poses"])
+    if poses.shape != (2, 4, 4) or not np.isfinite(poses).all():
+        fail(f"demo_1024 poses: shape {poses.shape}, finite "
+             f"{np.isfinite(poses).all()}")
+    g = 2 * DEMO_SIZE * DEMO_SIZE
+    ply_path = root / "out" / "gaussians.ply"
+    ply = ply_export.load_ply(ply_path)
+    body = g * PLY_FLOATS * 4
+    header = len(ply_export.ply_header(g))
+    if ply["means"].shape != (g, 3) or ply_path.stat().st_size != header + body \
+            or not all(np.isfinite(c).all() for c in ply.values()):
+        fail(f"demo_1024 PLY: {ply['means'].shape[0]} vertices, "
+             f"{ply_path.stat().st_size} bytes (expected {header} + {body})")
+    gif = gif_frames(root / "out" / "interpolation.gif")
+    if gif != (2 * DEMO_FRAMES - 2, (DEMO_SIZE, DEMO_SIZE)):
+        fail(f"demo_1024 GIF (frames, size) {gif}")
+    (gaussians, extr, intr, near, far, shape, cfg), = recorded
+    # The exact depth rank (g - 1 < 2^21) and the tile id (up to 4096 + 1
+    # at 1024^2) overflow the 31-bit key: the quantized key.
+    key_bits = (g - 1).bit_length() + ((DEMO_SIZE // 16) ** 2 + 1).bit_length()
+    want_key = "quantized" if key_bits > 31 else "rank"
+    if cfg.rasterizer.depth_key != want_key or extr.shape[1] != DEMO_FRAMES:
+        fail(f"demo_1024 rendered {extr.shape[1]} frames with depth key "
+             f"{cfg.rasterizer.depth_key!r}")
+    # The first frame through K1 and K3 against their plain versions.
+    render_check, scan_ns = render_vs_plain(
+        torch, decode_splatting,
+        (extr[:, :1], intr[:, :1], near[:, :1], far[:, :1], shape, cfg),
+        gaussians, "demo 1024^2 frame 0")
+    del recorded, gaussians
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "demo_1024", "photos_hw": list(DEMO_PHOTO_HW),
+          "image_size": DEMO_SIZE, "checkpoint": None,
+          "launches": counts, "launches_expected_on_path": on_path,
+          "launches_off_path_all_zero": off_path,
+          "poses": poses.tolist(), "ply_vertices": ply["means"].shape[0],
+          "ply_bytes": header + body, "gif_frames_size": gif,
+          "depth_key": cfg.rasterizer.depth_key,
+          "frame0_render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
+          "encoder_init_s": timer.spans["encoder_init"],
+          "encoder_pass_ms": [t * 1e3 for t in timer.spans["encoder"]],
+          "render_60_frames_ms": timer.spans["render"][0] * 1e3,
+          "ply_write_s": timer.spans["ply_write"][0],
+          "gif_write_s": timer.spans["gif_write"][0],
+          "run_demo_s": run_s, "peak_bytes": peak,
+          "seconds": time.perf_counter() - t_phase})
+    return {"counts": counts, "render_check": render_check}
 
 
 def cli_phases(torch, repo: Path, dev) -> dict:
@@ -1506,7 +1720,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = cli.main(argv)
+        rc = run_cli(cli, argv)
     finally:
         for name, fn in real.items():
             setattr(loop, name, fn)
@@ -1518,11 +1732,14 @@ def cli_phases(torch, repo: Path, dev) -> dict:
         fail(f"cli_train: rc {rc}, {len(step_ms)} steps, {len(saves)} saves")
     (guard,) = guards
     probed = sum(p["microbatch"] for p in guard["probes"])
-    val_runs = len([s for s in range(1, CLI_STEPS) if s % CLI_VAL_EVERY == 0])
+    val_steps = [s for s in range(1, CLI_STEPS) if s % CLI_VAL_EVERY == 0]
     renders = CLI_STEPS * batch + probed
-    want = {"composite_forward": renders + 3 * val_runs,
+    # A validation renders its 2 context views and target, then each
+    # video's frames.
+    val_renders = (3 + 2 * VAL_VIDEO_FRAMES) * len(val_steps)
+    want = {"composite_forward": renders + val_renders,
             "composite_backward": renders,
-            "cumsum_1d": 2 * (renders + 3 * val_runs)}
+            "cumsum_1d": 2 * (renders + val_renders)}
     want = {k: want.get(k, 0) for k in train_counts}
     if train_counts != want:
         fail(f"cli_train launch counts {train_counts}, expected {want}")
@@ -1537,6 +1754,14 @@ def cli_phases(torch, repo: Path, dev) -> dict:
              f"{head['count']}, skipped {head['skipped_count']}")
     n_params = sum(t.numel() for t in head["encoder"].values())
     del head
+    val_videos = {}
+    for s in val_steps:
+        for name in ("interpolation", "wobble"):
+            path = out_dir / "validation" / f"step_{s}" / f"{name}.gif"
+            val_videos[str(path.relative_to(root))] = got = gif_frames(path)
+            if not 1 <= got[0] <= 2 * VAL_VIDEO_FRAMES - 2 or \
+                    got[1] != tuple(cfg.image_shape)[::-1]:
+                fail(f"cli_train: {path} has (frames, size) {got}")
     emit({"phase": "cli_train", "preset": CLI_PRESET, "overrides": overrides,
           "params": n_params, "batch": batch, "steps": CLI_STEPS,
           "seconds": train_s, "step_ms": step_ms,
@@ -1546,6 +1771,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
           "val": {k: v for m in logged.values() for k, v in m.items()
                   if k.startswith("val/")},
           "guard": guard, "launches": train_counts, "expected_launches": want,
+          "validation_videos_frames_size": val_videos,
           "checkpoint_save": saves[0]})
 
     # ---- 16. cli_guard: a budget below the step's peak halves ----------
@@ -1569,7 +1795,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     emit({"phase": "cli_guard", "budget_gb": CLI_LOW_BUDGET_GB,
           "guard": low_guard, "launches": guard_counts})
 
-    # ---- 17. cli_test: mode=test, images saved, seeded LPIPS ------------
+    # ---- 17. cli_test: mode=test, images and videos saved, seeded LPIPS -
     saved = []
     real_save_image, real_load = visualization.save_image, cli._load_encoder
 
@@ -1590,7 +1816,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     cuda_lib.reset_launch_counts()
     try:
         rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}",
-                              "test.save_image=true"])
+                              "test.save_image=true", "test.save_video=true"])
     finally:
         visualization.save_image, cli._load_encoder = real_save_image, real_load
     test_counts = dict(cuda_lib.launch_counts)
@@ -1610,10 +1836,21 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     expect = np.clip(frame * 255, 0, 255).astype(np.uint8)
     if path.parent.parent.name != "scene_000" or not np.array_equal(png, expect):
         fail(f"cli_test: {path} differs from its frame")
+    # Each scene's target frames as one GIF, named by its context indices.
+    videos = {}
+    for scene, e in CLI_INDEX.items():
+        name = f"{scene}_frame_{'_'.join(map(str, e['context']))}.gif"
+        videos[name] = got = gif_frames(test_dir / "video" / name)
+        if not 1 <= got[0] <= len(e["target"]) or \
+                got[1] != tuple(cfg.image_shape)[::-1]:
+            fail(f"cli_test: video {name} has (frames, size) {got}")
+    if sorted(p.name for p in (test_dir / "video").iterdir()) != sorted(videos):
+        fail(f"cli_test: videos {sorted((test_dir / 'video').iterdir())}")
     avg = json.loads((test_dir / "scores_all_avg.json").read_text())
     bench = json.loads((test_dir / "benchmark.json").read_text())
     emit({"phase": "cli_test", "scenes": len(CLI_INDEX), "targets": targets,
           "launches": test_counts, "png_equals_frame": str(path.relative_to(root)),
+          "videos_frames_size": videos,
           "averages": avg, "request_times": bench,
           "peak_memory": json.loads((test_dir / "peak_memory.json").read_text()),
           "checkpoint_load_s": load_s})
@@ -1669,7 +1906,11 @@ def main() -> int:
     )
     from spfsplatv2_tpu_torch.ops.raster_ref import composite_reference
     from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
-    from spfsplatv2_tpu_torch.ops.rasterizer import entry_budget
+    from spfsplatv2_tpu_torch.ops.rasterizer import (
+        RasterizerConfig,
+        entry_budget,
+        render,
+    )
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
     from spfsplatv2_tpu_torch.training.step import (
         LossConfig,
@@ -1830,6 +2071,36 @@ def main() -> int:
           "pairs_evaluated": evaluated,
           "vs_plain": k1_check, "vs_oracle_64px_max_abs_err": oracle,
           **k1_bound, **k1})
+
+    # "tiled", the plain-torch backend (no kernel), against "prefix" (K1,
+    # K3) on phase 4's scene and camera, with its opacities mapped into
+    # [0.05, 0.34): above 0.35 the tiled backend's radius box keeps alpha
+    # that the prefix binning's 3-sigma axis box drops, by design.
+    tiled_args = (c2w[None], k_norm[None], torch.ones(1, device=dev),
+                  torch.full((1,), 100.0, device=dev), (hw, hw),
+                  torch.zeros(1, 3, device=dev), means, covs, harm,
+                  0.05 + (opac - 0.05) * (0.29 / 0.9))
+    backend_cfgs = {b: RasterizerConfig(backend=b, entry_budget_factor=4.0)
+                    for b in ("tiled", "prefix")}
+    with torch.no_grad():
+        outs = {b: render(*tiled_args, cfg=c) for b, c in backend_cfgs.items()}
+    tiled_check = {}
+    for name, atol, hard in (("color", 3e-5, 5e-3), ("depth", 3e-4, 2e-2),
+                             ("alpha", 3e-5, 5e-3)):
+        diff = (getattr(outs["tiled"], name) - getattr(outs["prefix"], name)).abs()
+        frac_ok = float((diff <= atol).float().mean())
+        tiled_check[name] = {"max_abs_err": float(diff.max()),
+                             "frac_within": frac_ok, "atol": atol}
+        if float(diff.max()) > hard or frac_ok < 0.999:
+            fail(f"tiled vs prefix {name}: {tiled_check[name]}")
+    emit({"phase": "tiled_256", "g": g, "hw": hw,
+          "dropped_entries": {b: int(o.dropped_entries[0])
+                              for b, o in outs.items()},
+          "tiled_vs_prefix": tiled_check,
+          **{f"{b}_render_ms": time_ms(
+              torch, lambda c=c: render(*tiled_args, cfg=c), 5, warmup=1)
+             for b, c in backend_cfgs.items()}})
+    del outs
 
     # ---- 5. main path: evaluate_example at full width -----------------
     t0 = time.perf_counter()
@@ -2315,6 +2586,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32 = f32_phases(torch, dev, request, train_batch, lpips, gen)
 
+    # ---- demo_1024: the demo at 1024^2 ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    demo_out = demo_phase(torch, repo, dev)
+
     # ---- 14-18. the command line ---------------------------------------
     del lpips
     gc.collect()
@@ -2342,7 +2618,8 @@ def main() -> int:
              "serving_1024_3_requests": long_counts,
              "train_1024_2_steps": long_train_counts,
              "serving_1024_f32_3_requests": f32["serve"],
-             "train_1024_f32_2_steps": f32["train"], **cli_counts,
+             "train_1024_f32_2_steps": f32["train"],
+             "demo_1024": demo_out["counts"], **cli_counts,
              "vggt_serve_3_requests": vggt["serve"],
              "vggt_train_2_steps": vggt["train"], **vggt_cli_counts}
 
@@ -2413,6 +2690,9 @@ def main() -> int:
                    "render_1024_f32_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in f32["render_check"].items()},
+                   "render_demo_1024_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in demo_out["render_check"].items()},
                    "render_vggt_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in vggt["render_check"].items()}}},

@@ -8,10 +8,12 @@ serving path of `python -m spfsplatv2_tpu_torch.main mode=test`:
   * rendering the targets at the predicted poses with GT intrinsics;
   * PSNR / SSIM / LPIPS and pose errors, bucketed by context overlap;
   * artifacts: `<output_path>/<scene>/color/<index:06>.png` per target
-    view, and `summarize_and_dump`'s `scores_all.json`,
+    view, with `save_video` the target frames as
+    `<output_path>/video/<scene>_frame_<context indices joined by _>.gif`,
+    and `summarize_and_dump`'s `scores_all.json`,
     `scores_all_avg.json`, `scores_sub_avg.json` (per-overlap buckets),
     `benchmark.json` and `peak_memory.json`.
-Video saving and `use_estimated_focal` are not ported and raise.
+`use_estimated_focal` is not ported and raises.
 
 The path runs under `torch.no_grad()` (the pose alignment enables
 autograd for itself) with TF32 off for matmuls and cuDNN convolutions
@@ -94,8 +96,6 @@ def evaluate_example(
     `lpips_params` is a `losses.lpips.LPIPS` module; its score is stored
     as "lpips", or "lpips_uncalibrated" unless `lpips_calibrated`.
     """
-    if eval_cfg.save_video:
-        raise NotImplementedError("video saving is not ported yet")
     if eval_cfg.use_estimated_focal:
         raise NotImplementedError("use_estimated_focal is not ported yet")
     device = torch.device(device)
@@ -178,15 +178,26 @@ def evaluate_example(
         result["context_pose_transl_err_deg"] = _floats(tr)
     result["dropped_entries"] = [int(x) for x in dropped_entries.reshape(-1)]
     result["images"] = None
-    if eval_cfg.save_images:
-        from spfsplatv2_tpu_torch.utils.visualization import save_image
+    if eval_cfg.save_images or eval_cfg.save_video:
+        from spfsplatv2_tpu_torch.utils.visualization import (
+            save_image,
+            save_video,
+        )
 
         frames = torch.clamp(pred, 0, 1).cpu().numpy()
-        scene_dir = Path(eval_cfg.output_path) / str(result["scene"]) / "color"
-        indices = tgt.get("index", list(range(v_tgt)))
-        for i, frame in enumerate(frames):
-            save_image(frame, scene_dir / f"{indices[i]:0>6}.png")
-        result["images"] = frames
+        scene = str(result["scene"])
+        out_dir = Path(eval_cfg.output_path)
+        if eval_cfg.save_images:
+            indices = tgt.get("index", list(range(v_tgt)))
+            for i, frame in enumerate(frames):
+                save_image(frame,
+                           out_dir / scene / "color" / f"{indices[i]:0>6}.png")
+            result["images"] = frames
+        if eval_cfg.save_video:
+            ctx_idx = ctx.get("index", list(range(v_cxt)))
+            frame_str = "_".join(str(int(i)) for i in ctx_idx)
+            save_video(list(frames),
+                       out_dir / "video" / f"{scene}_frame_{frame_str}.gif")
     result["rendered"] = pred
     return result
 

@@ -1,7 +1,7 @@
 """SE(3)/SO(3) algebra and camera-pose utilities (torch port).
 
 Counterpart of `spfsplatv2_tpu/geometry/se3.py`, restricted to the
-functions the serving and training paths use.  Extrinsics are
+functions the serving, training, video and PLY paths use.  Extrinsics are
 camera-to-world (c2w) 4x4 matrices; quaternions are (w, x, y, z).
 """
 
@@ -23,6 +23,42 @@ def quaternion_to_matrix(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         dim=-1,
     )
     return r.reshape(*q.shape[:-1], 3, 3)
+
+
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> (..., 4) wxyz quaternion (w >= 0).
+
+    Branch-free Shepperd's method: all four candidate constructions are
+    built and the one with the largest 4 q_i^2 is gathered per matrix.
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    qw2 = torch.clamp(1 + m00 + m11 + m22, min=0.0)
+    qx2 = torch.clamp(1 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1 - m00 - m11 + m22, min=0.0)
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+
+    w = 0.5 * torch.sqrt(qw2 + 1e-24)
+    x = 0.5 * torch.sqrt(qx2 + 1e-24)
+    y = 0.5 * torch.sqrt(qy2 + 1e-24)
+    z = 0.5 * torch.sqrt(qz2 + 1e-24)
+    qs = torch.stack([
+        torch.stack([w, (m21 - m12) / (4 * w), (m02 - m20) / (4 * w),
+                     (m10 - m01) / (4 * w)], dim=-1),
+        torch.stack([(m21 - m12) / (4 * x), x, (m01 + m10) / (4 * x),
+                     (m02 + m20) / (4 * x)], dim=-1),
+        torch.stack([(m02 - m20) / (4 * y), (m01 + m10) / (4 * y), y,
+                     (m12 + m21) / (4 * y)], dim=-1),
+        torch.stack([(m10 - m01) / (4 * z), (m02 + m20) / (4 * z),
+                     (m12 + m21) / (4 * z), z], dim=-1),
+    ], dim=-2)                                          # (..., 4, 4)
+    index = best[..., None, None].expand(*best.shape, 1, 4)
+    q = torch.gather(qs, -2, index)[..., 0, :]
+    q = torch.where(q[..., :1] < 0, -q, q)
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def rotation_6d_to_matrix(d6: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -130,19 +130,20 @@ def project_gaussians(
 
 
 def alpha_from_conic(
-    xy: torch.Tensor,       # (g, 2)
-    conic: torch.Tensor,    # (g, 3)
-    opacity: torch.Tensor,  # (g,)
-    pix: torch.Tensor,      # (p, 2)
+    xy: torch.Tensor,       # (..., g, 2)
+    conic: torch.Tensor,    # (..., g, 3)
+    opacity: torch.Tensor,  # (..., g)
+    pix: torch.Tensor,      # (..., p, 2)
 ) -> torch.Tensor:
-    """Per-pixel alphas (p, g) with the power > 0 skip, the 0.99 clamp and
-    the 1/255 cutoff."""
-    d = pix[:, None, :] - xy[None, :, :]
+    """Per-pixel alphas (..., p, g) with the power > 0 skip, the 0.99
+    clamp and the 1/255 cutoff."""
+    d = pix[..., :, None, :] - xy[..., None, :, :]
     dx, dy = d[..., 0], d[..., 1]
     power = (
-        -0.5 * (conic[None, :, 0] * dx * dx + conic[None, :, 2] * dy * dy)
-        - conic[None, :, 1] * dx * dy
+        -0.5 * (conic[..., None, :, 0] * dx * dx
+                + conic[..., None, :, 2] * dy * dy)
+        - conic[..., None, :, 1] * dx * dy
     )
-    alpha = torch.clamp(opacity[None, :] * torch.exp(power), max=ALPHA_MAX)
+    alpha = torch.clamp(opacity[..., None, :] * torch.exp(power), max=ALPHA_MAX)
     keep = (power <= 0.0) & (alpha >= ALPHA_MIN)
     return torch.where(keep, alpha, torch.zeros_like(alpha))

@@ -1,16 +1,27 @@
-"""Prefix-layout tile binning of projected Gaussians (torch port).
+"""Tile binning and tile compositing of projected Gaussians (torch port
+of `spfsplatv2_tpu/ops/raster_tiled.py`).
 
-Counterpart of `spfsplatv2_tpu/ops/raster_tiled.py:bin_gaussians_prefix`
-and `PrefixBins`.  Every live Gaussian is expanded into one entry per
-16x16 tile its ellipse bounding box touches, keyed by (tile, depth rank);
-one sort of those keys is the slot space: tile t's depth-ordered segment
-is [starts[t], starts[t] + counts[t]) of the sorted live prefix.
+Prefix layout (`bin_gaussians_prefix`, `PrefixBins`; the kernel path):
+every live Gaussian is expanded into one entry per 16x16 tile its
+ellipse bounding box touches, keyed by (tile, depth rank); one sort of
+those keys is the slot space: tile t's depth-ordered segment is
+[starts[t], starts[t] + counts[t]) of the sorted live prefix.  The three
+sorts are `torch.sort` (stable, so ties resolve the same way on every
+run; the JAX sorts are unstable, so only the live prefix and the int
+fields are comparable), the tile bounds are `torch.searchsorted`, and the
+two prefix sums go through `cumsum_1d` (kernel K3 on CUDA).  Fields are
+int32 at the interface and cast to int64 only to index.
 
-The three sorts are `torch.sort` (stable, so ties resolve the same way on
-every run; the JAX sorts are unstable, so only the live prefix and the
-int fields are comparable), the tile bounds are `torch.searchsorted`, and
-the two prefix sums go through `cumsum_1d` (kernel K3 on CUDA).  Fields
-are int32 at the interface and cast to int64 only to index.
+The "tiled" backend (`bin_gaussians`, `composite_tiles`,
+`rasterize_tiled`): Gaussians permuted into depth order, one sorted
+(tile, depth rank) entry list with per-tile segment starts, and every
+tile composited over a window of its front-most `max_per_tile` entries,
+chunk by chunk, all tiles at once: within a chunk the front-to-back
+transmittance is a cumulative product, cut where it would fall below
+T_EPS, and the colour a (pixels x chunk) @ (chunk x 3) product.  Plain,
+differentiable torch (no kernel): gradients reach the projected
+attributes, and through them the means, covariances, opacities,
+harmonics and the camera pose.
 """
 
 from __future__ import annotations
@@ -19,7 +30,12 @@ from typing import NamedTuple
 
 import torch
 
-from spfsplatv2_tpu_torch.ops.raster_common import ProjectedGaussians
+from spfsplatv2_tpu_torch.ops.raster_common import (
+    T_EPS,
+    ProjectedGaussians,
+    alpha_from_conic,
+    project_gaussians,
+)
 from spfsplatv2_tpu_torch.ops.segscan import cumsum_1d
 
 TILE = 16
@@ -28,6 +44,13 @@ PIX_PER_TILE = TILE * TILE
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def rank_key_bits(g: int, n_tiles: int) -> int:
+    """Bits of the prefix binning's key under the exact depth rank: the
+    rank of g Gaussians and a tile id up to the sentinel n_tiles.  Over
+    31 the binning needs `depth_key="quantized"`."""
+    return max((g - 1).bit_length(), 1) + (n_tiles + 1).bit_length()
 
 
 class PrefixBins(NamedTuple):
@@ -93,13 +116,12 @@ def bin_gaussians_prefix(
     live_g = (radius > 0) & torch.isfinite(depth)
 
     depth_bits = depth.to(torch.float32).contiguous().view(torch.int32)
-    row_bits_needed = max((g - 1).bit_length(), 1)
     tile_bits = (n_tiles + 1).bit_length()
     if depth_key == "quantized":
         row_bits = 31 - tile_bits
         rank = torch.clamp(depth_bits, min=0) >> (31 - row_bits)
     elif depth_key == "rank":
-        row_bits = row_bits_needed
+        row_bits = rank_key_bits(g, n_tiles) - tile_bits
         order = torch.argsort(depth_bits, stable=True)
         rank = torch.argsort(order, stable=True).to(torch.int32)
     else:
@@ -235,3 +257,164 @@ def bin_gaussians_prefix(
         n_overflow.to(torch.int32), dup_a, src_order, src_sorted,
         live_counts, ends, has_drops,
     )
+
+
+class TileBins(NamedTuple):
+    """Depth-sorted per-tile entry lists of the "tiled" backend.
+
+    ids_sorted: (g * max_tiles_per_gaussian,) Gaussian row per sorted
+    entry, in depth-permuted row space (attribute tables are permuted by
+    `order` before they are gathered by it); dead entries sort last.
+    tile_starts: (n_tiles + 1,) int32 segment starts into ids_sorted.
+    """
+
+    ids_sorted: torch.Tensor
+    tile_starts: torch.Tensor
+    num_tiles_xy: tuple[int, int]
+    order: torch.Tensor
+
+
+@torch.no_grad()
+def bin_gaussians(
+    proj: ProjectedGaussians,
+    image_shape: tuple[int, int],
+    max_tiles_per_gaussian: int,
+) -> TileBins:
+    """Depth-sorted per-tile entry lists (non-differentiable): each live
+    Gaussian takes up to `max_tiles_per_gaussian` tiles of its radius
+    box, row-major, keyed by (tile, depth rank) in one int64 sort."""
+    if max_tiles_per_gaussian < 1:
+        raise ValueError(f"max_tiles_per_gaussian={max_tiles_per_gaussian}")
+    h, w = image_shape
+    tiles_y, tiles_x = _cdiv(h, TILE), _cdiv(w, TILE)
+    n_tiles = tiles_y * tiles_x
+    g = proj.xy.shape[0]
+    dev = proj.xy.device
+
+    # Gaussians in depth order: the permuted row IS the depth rank.
+    order = torch.argsort(proj.depth.detach(), stable=True)
+    xy = proj.xy.detach()[order]
+    radius = proj.radius[order]
+    live = (radius > 0) & torch.isfinite(proj.depth.detach()[order])
+
+    r = radius.to(xy.dtype)
+
+    def tile_coord(v, lim, add=0):
+        return torch.clamp(torch.floor(v / TILE) + add, 0, lim).to(torch.int64)
+
+    x0 = tile_coord(xy[:, 0] - r, tiles_x)
+    y0 = tile_coord(xy[:, 1] - r, tiles_y)
+    x1 = tile_coord(xy[:, 0] + r, tiles_x, 1)
+    y1 = tile_coord(xy[:, 1] + r, tiles_y, 1)
+    zero = torch.zeros_like(x0)
+    bw = torch.where(live, x1 - x0, zero)
+    n_touched = bw * torch.where(live, y1 - y0, zero)
+
+    d = torch.arange(max_tiles_per_gaussian, device=dev)[None, :]
+    bw_safe = torch.clamp(bw, min=1)[:, None]
+    slot_ok = (d < n_touched[:, None]) & live[:, None]
+    tile_id = torch.where(
+        slot_ok, (y0[:, None] + d // bw_safe) * tiles_x + x0[:, None]
+        + d % bw_safe, torch.full_like(slot_ok, n_tiles, dtype=torch.int64))
+
+    row_bits = max((g - 1).bit_length(), 1)
+    row = torch.arange(g, device=dev)[:, None]
+    key_sorted, _ = torch.sort((tile_id * (1 << row_bits) + row).reshape(-1))
+    ids_sorted = (key_sorted & ((1 << row_bits) - 1)).to(torch.int32)
+    bounds = torch.arange(n_tiles + 1, device=dev) * (1 << row_bits)
+    tile_starts = torch.searchsorted(key_sorted, bounds).to(torch.int32)
+    return TileBins(ids_sorted, tile_starts, (tiles_y, tiles_x), order)
+
+
+def composite_tiles(
+    proj: ProjectedGaussians,
+    bins: TileBins,
+    image_shape: tuple[int, int],
+    background: torch.Tensor,
+    max_per_tile: int = 2048,
+    chunk: int = 128,
+):
+    """Composite every tile over its front-most `max_per_tile` entries.
+    Returns (color (h, w, 3), depth (h, w), alpha (h, w))."""
+    if max_per_tile % chunk:
+        raise ValueError(f"max_per_tile={max_per_tile} is no multiple of "
+                         f"chunk={chunk}")
+    h, w = image_shape
+    tiles_y, tiles_x = bins.num_tiles_xy
+    n_tiles = tiles_y * tiles_x
+    dtype, dev = proj.xy.dtype, proj.xy.device
+    n_gauss = proj.xy.shape[0]
+
+    depth_safe = torch.where(torch.isfinite(proj.depth), proj.depth,
+                             torch.zeros_like(proj.depth))
+    packed = torch.cat([proj.xy, proj.conic, proj.color, proj.opacity[:, None],
+                        depth_safe[:, None]], dim=-1)[bins.order]
+    # A dummy row far off screen (alpha 0) pads every window.
+    dummy = torch.zeros((1, packed.shape[-1]), dtype=dtype, device=dev)
+    dummy[0, :2] = -1e9
+    packed = torch.cat([packed, dummy])
+
+    starts = bins.tile_starts[:-1].to(torch.int64)
+    counts = torch.clamp(bins.tile_starts[1:] - bins.tile_starts[:-1],
+                         max=max_per_tile).to(torch.int64)
+    ids_padded = torch.cat([
+        bins.ids_sorted.to(torch.int64),
+        torch.full((max_per_tile,), n_gauss, dtype=torch.int64, device=dev)])
+    k = torch.arange(max_per_tile, device=dev)
+    window = torch.where(k < counts[:, None], ids_padded[starts[:, None] + k],
+                         torch.full_like(k, n_gauss))       # (tiles, max)
+
+    # Pixel centres at integer coordinates, each tile's 16 x 16 in rows.
+    dyx = torch.arange(TILE, dtype=dtype, device=dev)
+    py, px = torch.meshgrid(dyx, dyx, indexing="ij")
+    local = torch.stack([px.reshape(-1), py.reshape(-1)], dim=-1)  # (P, 2)
+    tile = torch.arange(n_tiles, device=dev)
+    origin = torch.stack([tile % tiles_x, tile // tiles_x], dim=-1).to(dtype)
+    pix = local[None] + TILE * origin[:, None]              # (tiles, P, 2)
+
+    t_carry = torch.ones((n_tiles, PIX_PER_TILE), dtype=dtype, device=dev)
+    color = torch.zeros((n_tiles, PIX_PER_TILE, 3), dtype=dtype, device=dev)
+    depth = torch.zeros((n_tiles, PIX_PER_TILE), dtype=dtype, device=dev)
+    # Chunks past every tile's window hold only the dummy row and change
+    # nothing: the loop stops at the deepest window.
+    for c0 in range(0, _cdiv(int(counts.max()), chunk) * chunk, chunk):
+        attrs = packed[window[:, c0:c0 + chunk]]            # (tiles, C, 10)
+        alpha = alpha_from_conic(attrs[..., 0:2], attrs[..., 2:5],
+                                 attrs[..., 8], pix)        # (tiles, P, C)
+        om = 1.0 - alpha
+        cp = torch.cumprod(om, dim=-1)
+        composited = (t_carry[..., None] * cp).detach() >= T_EPS
+        cp_excl = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]], -1)
+        weight = torch.where(composited, alpha * t_carry[..., None] * cp_excl,
+                             torch.zeros_like(alpha))
+        color = color + weight @ attrs[..., 5:8]
+        depth = depth + (weight @ attrs[..., 9:10])[..., 0]
+        t_carry = t_carry * torch.prod(
+            torch.where(composited, om, torch.ones_like(om)), dim=-1)
+    color = color + t_carry[..., None] * background
+
+    def untile(x):
+        x = x.reshape(tiles_y, tiles_x, TILE, TILE, -1)
+        x = x.permute(0, 2, 1, 3, 4).reshape(tiles_y * TILE, tiles_x * TILE, -1)
+        return x[:h, :w]
+
+    return untile(color), untile(depth)[..., 0], untile(1.0 - t_carry)[..., 0]
+
+
+def rasterize_tiled(
+    means, covariances, harmonics, opacities, c2w, intrinsics, background,
+    image_shape: tuple[int, int],
+    sh_degree: int | None = None,
+    use_sh: bool = True,
+    max_tiles_per_gaussian: int = 16,
+    max_per_tile: int = 2048,
+    chunk: int = 128,
+):
+    """Single-camera tiled rasterization: project, bin, composite."""
+    proj = project_gaussians(
+        means, covariances, harmonics, opacities, c2w, intrinsics,
+        image_shape, sh_degree=sh_degree, use_sh=use_sh,
+    )
+    bins = bin_gaussians(proj, image_shape, max_tiles_per_gaussian)
+    return composite_tiles(proj, bins, image_shape, background,
+                           max_per_tile=max_per_tile, chunk=chunk)

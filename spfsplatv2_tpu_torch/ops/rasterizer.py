@@ -5,9 +5,15 @@ Backends:
   * "prefix"    -- project, prefix binning, then per-tile compositing
                    (`raster_cuda.composite_prefix`: kernel K1 on CUDA, its
                    plain version on CPU).  The JAX package's "pallas"
-                   backend; "auto", the default, selects it.
+                   backend; "auto", the default, selects it on every
+                   device (the JAX package's "auto" takes "tiled" off the
+                   TPU).
+  * "tiled"     -- tile-binned plain torch (`raster_tiled.bin_gaussians`,
+                   `composite_tiles`), differentiable by autograd, no
+                   kernel; each tile composites its front-most
+                   `max_per_tile` entries and the rest are counted as
+                   dropped.
   * "reference" -- the dense O(pixels x gaussians) oracle.
-The JAX package's pure-XLA "tiled" backend is not ported.
 """
 
 from __future__ import annotations
@@ -19,14 +25,18 @@ import torch
 from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
 from spfsplatv2_tpu_torch.ops.raster_cuda import composite_prefix
 from spfsplatv2_tpu_torch.ops.raster_ref import composite_reference
-from spfsplatv2_tpu_torch.ops.raster_tiled import bin_gaussians_prefix
+from spfsplatv2_tpu_torch.ops.raster_tiled import (
+    bin_gaussians,
+    bin_gaussians_prefix,
+    composite_tiles,
+)
 
 
 @dataclass(frozen=True)
 class RasterizerConfig:
     backend: str = "auto"
     max_tiles_per_gaussian: int = 16
-    # The JAX "tiled" backend's per-tile cap; no backend of the port reads it.
+    # The "tiled" backend's per-tile entry cap.
     max_per_tile: int = 2048
     chunk: int = 128
     scale_invariant: bool = True
@@ -70,6 +80,15 @@ def _render_one(means, covariances, harmonics, opacities, c2w, intrinsics,
     dropped = torch.zeros((), dtype=torch.int32, device=means.device)
     if cfg.backend == "reference":
         color, depth, alpha = composite_reference(proj, image_shape, background)
+    elif cfg.backend == "tiled":
+        bins = bin_gaussians(proj, image_shape, cfg.max_tiles_per_gaussian)
+        diff = bins.tile_starts[1:] - bins.tile_starts[:-1]
+        dropped = torch.clamp(diff - cfg.max_per_tile, min=0).sum().to(
+            torch.int32)
+        color, depth, alpha = composite_tiles(
+            proj, bins, image_shape, background,
+            max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+        )
     elif cfg.backend in ("auto", "prefix"):
         bins = bin_gaussians_prefix(
             proj, image_shape, cfg.max_tiles_per_gaussian, cfg.chunk,
@@ -104,30 +123,28 @@ def render(
     """Render a batch of cameras over shared or per-camera Gaussian sets.
 
     `scale_invariant` rescales the world by 1/near per camera before
-    rendering; depth is returned in the rescaled world.
+    rendering; depth is returned in the rescaled world.  The rescaled
+    means and covariances are made one camera at a time, inside the loop:
+    the same float32 products as a batch of them, so the same bits, but a
+    video over shared Gaussians holds one camera's copy, not all of them.
     """
     del far  # the rasterizer has no far plane (as in the JAX package)
     shared = means.ndim == 2
     n_cam = extrinsics.shape[0]
     if cfg.scale_invariant:
         scale = 1.0 / near
+        scale_sq = scale ** 2
         extrinsics = extrinsics.clone()
         extrinsics[..., :3, 3] = extrinsics[..., :3, 3] * scale[:, None]
-        if shared:
-            means = means[None] * scale[:, None, None]
-            covariances = covariances[None] * (scale[:, None, None, None] ** 2)
-            harmonics = harmonics[None].expand(n_cam, *harmonics.shape)
-            opacities = opacities[None].expand(n_cam, *opacities.shape)
-            shared = False
-        else:
-            means = means * scale[:, None, None]
-            covariances = covariances * (scale[:, None, None, None] ** 2)
 
     outs = []
     for i in range(n_cam):
         sel = (lambda x: x) if shared else (lambda x: x[i])
+        m, c = sel(means), sel(covariances)
+        if cfg.scale_invariant:
+            m, c = m * scale[i], c * scale_sq[i]
         outs.append(_render_one(
-            sel(means), sel(covariances), sel(harmonics), sel(opacities),
+            m, c, sel(harmonics), sel(opacities),
             extrinsics[i], intrinsics[i], background[i], image_shape,
             sh_degree, cfg,
         ))

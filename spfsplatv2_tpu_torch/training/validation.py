@@ -9,8 +9,10 @@ from the predicted Gaussians at the predicted poses, and
   * val/{context,target}_angular_error and _transl_error pose errors
 are returned, while a labelled comparison sheet (context | context
 depth | target GT | prediction | depth) lands in
-`<out_dir>/validation/step_<n>/comparison.png`.  The JAX function's
-interpolation and wobble videos are not ported.
+`<out_dir>/validation/step_<n>/comparison.png`, beside 30-frame
+interpolation and wobble videos of the context (`interpolation.gif`,
+`wobble.gif`; best effort, as in the JAX function: a failure prints
+"validation video skipped: ..." and training goes on).
 """
 
 from __future__ import annotations
@@ -128,4 +130,19 @@ def run_validation_step(
             ),
         ]
         save_image(hcat(*columns), step_dir / "comparison.png")
+
+        from spfsplatv2_tpu_torch.evaluation.video import (
+            render_interpolation_video,
+            render_wobble_video,
+        )
+
+        try:
+            for name, render_fn in (("interpolation",
+                                     render_interpolation_video),
+                                    ("wobble", render_wobble_video)):
+                render_fn(encoder, ctx, image_shape, num_frames=30,
+                          decoder_cfg=decoder_cfg,
+                          output_path=step_dir / f"{name}.gif")
+        except Exception as e:  # video is best-effort during training
+            print(f"validation video skipped: {e}", flush=True)
     return metrics

@@ -1,7 +1,8 @@
-"""Visualization helpers: image layout, depth colormap, image saving
-(the parts of `spfsplatv2_tpu/utils/visualization.py` that validation and
-evaluation use).  Host-side numpy; PNG writing uses Pillow, imported
-where it is needed.  Video export is not ported.
+"""Visualization helpers: image layout, depth colormap, pose
+interpolation, image and video saving (torch port of
+`spfsplatv2_tpu/utils/visualization.py`).  Host-side numpy (the pose
+interpolation's SE(3) algebra in torch on the CPU); PNG and GIF writing
+use Pillow, imported where it is needed.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 def hcat(*images: np.ndarray, border: int = 4, value: float = 1.0) -> np.ndarray:
@@ -61,6 +63,52 @@ def apply_depth_colormap(
     i0 = np.clip(x.astype(np.int32), 0, len(_TURBO_ANCHORS) - 2)
     frac = (x - i0)[..., None]
     return _TURBO_ANCHORS[i0] * (1 - frac) + _TURBO_ANCHORS[i0 + 1] * frac
+
+
+def interpolate_extrinsics(
+    a: np.ndarray, b: np.ndarray, t: np.ndarray
+) -> np.ndarray:
+    """Pose interpolation by the relative rotation's axis-angle and a
+    translation lerp, as the JAX function does it.
+
+    a, b: (4, 4) c2w; t: (n,), in [0, 1] or beyond it (extrapolation)
+    -> (n, 4, 4) float32.  The relative pose and each frame's rotation
+    are float32; each frame's relative transform is float64, and
+    a @ m is cast to float32 at the end.
+    """
+    from spfsplatv2_tpu_torch.geometry import se3
+
+    a32 = torch.as_tensor(np.asarray(a, np.float32))
+    b32 = torch.as_tensor(np.asarray(b, np.float32))
+    rel = (se3.inverse_se3(a32) @ b32).numpy()
+    q = se3.matrix_to_quaternion(torch.as_tensor(rel[:3, :3])).numpy()
+    angle = 2 * np.arccos(np.clip(q[0], -1, 1))
+    axis = q[1:] / (np.linalg.norm(q[1:]) + 1e-12)
+    t = np.asarray(t, np.float32)
+    rots = se3.so3_exp(torch.as_tensor(axis[None] * angle * t[:, None])).numpy()
+    m = np.broadcast_to(np.eye(4), (t.shape[0], 4, 4)).copy()
+    m[:, :3, :3] = rots
+    m[:, :3, 3] = rel[None, :3, 3] * t[:, None]
+    return (np.asarray(a) @ m).astype(np.float32)
+
+
+def save_video(frames: list[np.ndarray], path: str | Path, fps: int = 30) -> None:
+    """Save (h, w, 3) float [0, 1] frames as an animated GIF at
+    `path.with_suffix(".gif")`, looping, `int(1000 / fps)` ms a frame."""
+    from PIL import Image
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    imgs = [
+        Image.fromarray(np.clip(f * 255, 0, 255).astype(np.uint8)) for f in frames
+    ]
+    imgs[0].save(
+        path.with_suffix(".gif"),
+        save_all=True,
+        append_images=imgs[1:],
+        duration=int(1000 / fps),
+        loop=0,
+    )
 
 
 def save_image(image: np.ndarray, path: str | Path) -> None:

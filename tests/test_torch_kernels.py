@@ -952,7 +952,14 @@ def test_port_imports_without_jax():
                      "spfsplatv2_tpu_torch.training.validation",
                      "spfsplatv2_tpu_torch.evaluation.pose_evaluator",
                      "spfsplatv2_tpu_torch.utils.pnp",
-                     "spfsplatv2_tpu_torch.utils.yaml_lite"):
+                     "spfsplatv2_tpu_torch.utils.yaml_lite",
+                     "spfsplatv2_tpu_torch.demo",
+                     "spfsplatv2_tpu_torch.evaluation.video",
+                     "spfsplatv2_tpu_torch.evaluation.metric_computer",
+                     "spfsplatv2_tpu_torch.evaluation.index_generator",
+                     "spfsplatv2_tpu_torch.geometry.projection",
+                     "spfsplatv2_tpu_torch.utils.camera_trajectory",
+                     "spfsplatv2_tpu_torch.utils.ply_export"):
             assert name in sys.modules, name
         print("imported", len(sys.modules))
     """)

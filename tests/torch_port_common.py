@@ -373,6 +373,35 @@ def lpips_weights_file(path, seed=0):
     return path
 
 
+def per_camera(decode):
+    """The JAX package's `decode_splatting`, one camera a call.  JAX's
+    `render` unrolls its camera loop into one XLA program, about half a
+    second of CPU compile a camera; a video's frames then compile once."""
+    import types
+
+    import jax.numpy as jnp
+
+    def one_at_a_time(gaussians, extrinsics, intrinsics, near, far, shape,
+                      cfg):
+        colors = [decode(gaussians, extrinsics[:, i:i + 1],
+                         intrinsics[:, i:i + 1], near[:, i:i + 1],
+                         far[:, i:i + 1], shape, cfg).color
+                  for i in range(extrinsics.shape[1])]
+        return types.SimpleNamespace(color=jnp.concatenate(colors, axis=1))
+
+    return one_at_a_time
+
+
+def jitted(module):
+    """A flax module whose `apply` is jitted, for JAX code that applies
+    it op by op (tens of seconds of CPU compile a new shape)."""
+    import types
+
+    import jax
+
+    return types.SimpleNamespace(apply=jax.jit(module.apply))
+
+
 def cli_checkpoints(params, tmp_path):
     """The same flax params as a JAX orbax checkpoint and as the port's
     checkpoint; -> (jax dir, port dir)."""
