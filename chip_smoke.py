@@ -143,7 +143,30 @@ Phases, each printing JSON lines:
  21. the command line on that preset: mode=train for 2 steps on phase
      14's chunks (the memory guard, one validation, the 14 GB
      checkpoint's seconds and bytes), then mode=test from that checkpoint
-     ("vggt_cli"); then `build/cli/` is deleted.
+     ("vggt_cli");
+ 22. SPFSplat v1 at full width: the encoder of experiments/spfsplat/
+     re10k.yaml (ViT-L 24x1024 shared across views with the intrinsics
+     token at its input, 2 x 12 x 768 decoders run over the context views
+     and again over all views, four DPT heads, pose heads on pooled
+     1792-d tokens; bf16 compute) from a seeded init, serving 3 requests
+     (2 context views + 1 target at 256^2) through `evaluate_example`,
+     launch counts read around exactly those requests, the first
+     request's render through K1 and K3 held against their plain versions
+     on the card ("v1_request");
+ 23. 2 train steps of `make_train_step` at the preset's b = 12 with the
+     microbatch `training/loop.py:fit_microbatch` picks, launch counts
+     read around exactly those steps, `loss/reproj_c2_only` in each, the
+     first K2 launch held against its plain version ("v1_train");
+ 24. 2 more steps with the full-width DUSt3R teacher, loaded through
+     `training/loop.py:load_distiller_params` from a seeded random state
+     dict with DUSt3R's key names and shapes written to a file:
+     `loss/distillation` finite and above 0, the teacher bit for bit
+     unchanged and without gradients ("v1_distill");
+ 25. the command line on that preset: mode=train for 2 steps on phase
+     14's chunks from a seeded random MASt3R-keyed state dict
+     (`checkpointing.pretrained_weights`), one validation, the final
+     checkpoint, then mode=test from it ("v1_cli"); then `build/cli/` is
+     deleted.
 Then the script's seconds so far (phase "done"), the kernels line (each
 kernel's times, bound, launches on its path and check results), the
 card's name and power limit, and the result.
@@ -158,6 +181,7 @@ import contextlib
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -265,6 +289,13 @@ DEMO_PHOTO_HW, DEMO_SIZE, DEMO_FRAMES = (1152, 1536), 1024, 60
 # writer merges; view 1's pose head gets this translation bias.
 DEMO_BASELINE = 0.3
 PLY_FLOATS = 17  # xyz, normals, DC colour, opacity, 3 scales, 4 rotation
+# SPFSplat v1 (phases "v1_*"): the encoder of this preset at full width on
+# seeded random weights, 2 context views + 1 target at its 256^2, training
+# at its batch of 12 with the microbatch the memory guard picks; the
+# DUSt3R teacher and the pretrained weights from seeded random state dicts
+# with DUSt3R's and MASt3R's key names and shapes, written to files.
+V1_PRESET = "experiments/spfsplat/re10k.yaml"
+V1_REQUESTS, V1_STEPS, V1_DISTILL_STEPS, V1_CLI_STEPS = 3, 2, 2, 2
 
 
 def emit(obj: dict) -> None:
@@ -1227,6 +1258,128 @@ def place_vggt_scene(torch, encoder) -> None:
         fc2.bias[6] += 0.25
 
 
+def train_steps(torch, dev, state, cfg, hw, lpips, batches, where: str,
+                microbatch=None, distiller=None) -> dict:
+    """Train steps of `make_train_step` on `batches` (with `distiller`, the
+    teacher), at `microbatch` or, without one, at the microbatch that
+    `training/loop.py:fit_microbatch` picks (its probes recorded); the
+    launch counts read around exactly those steps must be one K1 and K2
+    and two K3 a camera; the first K2 launch is held against its plain
+    version on the same inputs and bins."""
+    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.training.step import make_train_step
+
+    batch_size = batches[0]["context"]["image"].shape[0]
+    kwargs = dict(decoder_cfg=cfg.decoder, loss_cfg=cfg.loss, lpips=lpips,
+                  training_context=cfg.train.training_context,
+                  distiller=distiller)
+    guard = None
+    if microbatch is None:
+        probes = []
+
+        def probe(mb):
+            probes.append({"microbatch": mb, "peak_gb": loop.probe_peak_gb(
+                state, batches[0], mb, {"image_shape": hw, **kwargs})})
+            return probes[-1]["peak_gb"]
+
+        budget_gb = loop.device_memory_gb(dev)
+        t0 = time.perf_counter()
+        microbatch, peak = loop.fit_microbatch(probe, batch_size, None,
+                                               budget_gb)
+        guard = {"peak_gb": peak, "budget_gb": budget_gb, "probes": probes,
+                 "seconds": time.perf_counter() - t0}
+        microbatch = microbatch or batch_size
+    step_fn = make_train_step(state.encoder, state.optimizer, hw,
+                              microbatch=microbatch, **kwargs)
+    with first_k2_launch(raster_cuda) as k2_seen:
+        cuda_lib.reset_launch_counts()
+        steps = [run_train_step(torch, dev, state, step_fn, b) for b in batches]
+        counts = dict(cuda_lib.launch_counts)
+    cams = len(batches) * batch_size
+    want = {k: 0 for k in counts}
+    want.update(composite_forward=cams, composite_backward=cams,
+                cumsum_1d=2 * cams)
+    if counts != want:
+        fail(f"{where} launch counts {counts}, expected {want}")
+    k2_check = check_first_k2(torch, raster_cuda, k2_seen, f"{where} step")
+    return {"batch": batch_size, "microbatch": microbatch, "guard": guard,
+            "steps": steps, "launches": counts, "k2_vs_plain": k2_check,
+            "e_pad": k2_seen["bins"].e_pad, "g": k2_seen["g"]}
+
+
+def train_summary(run: dict) -> dict:
+    """A `train_steps` result's summary line."""
+    steps = run["steps"]
+    return {"batch": run["batch"], "microbatch": run["microbatch"],
+            "guard": run["guard"], "steps": len(steps),
+            "launches": run["launches"], "step_ms": [st["ms"] for st in steps],
+            "peak_bytes": max(st["peak_bytes"] for st in steps),
+            "branches": [st["branch"] for st in steps],
+            "k2_vs_plain": run["k2_vs_plain"], "e_pad": run["e_pad"],
+            "g": run["g"]}
+
+
+def cli_train(torch, dev, argv: list, wraps: dict) -> dict:
+    """`main.main(argv)` (mode=train) in process with each train step's
+    kernel launches counted apart, every logged metric and the memory
+    guard's result recorded; `wraps` maps other names of
+    `training/loop.py` to a function of the real one that returns its
+    stand-in.  -> rc, seconds, logged metrics by step, guards, each
+    step's launches and the call's launches."""
+    from spfsplatv2_tpu_torch import main as cli
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.training import loop
+
+    logged, guards, step_counts = {}, [], []
+
+    def make_train_step(real):
+        def build(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def counted(state, batch_):
+                before = dict(cuda_lib.launch_counts)
+                result = step(state, batch_)
+                step_counts.append({k: v - before[k]
+                                    for k, v in cuda_lib.launch_counts.items()})
+                return result
+
+            return counted
+
+        return build
+
+    def run_training(real):
+        def run(cfg_, log_fn=None, **kwargs):
+            def log(step, metrics):
+                logged.setdefault(step, {}).update(metrics)
+                log_fn(step, metrics)
+
+            result = real(cfg_, log_fn=log, **kwargs)
+            guards.append(result["guard"])
+            return result
+
+        return run
+
+    wraps = {"make_train_step": make_train_step, "run_training": run_training,
+             **wraps}
+    real = {name: getattr(loop, name) for name in wraps}
+    for name, wrap in wraps.items():
+        setattr(loop, name, wrap(real[name]))
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = run_cli(cli, argv)
+    finally:
+        for name, fn in real.items():
+            setattr(loop, name, fn)
+    seconds = time.perf_counter() - t0
+    counts = dict(cuda_lib.launch_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rc": rc, "seconds": seconds, "logged": logged, "guards": guards,
+            "step_launches": step_counts, "launches": counts}
+
+
 def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     """The VGGT-1B family at full width, phases "vggt_serve" and
     "vggt_train"; returns each path's launch counts and the K2 check."""
@@ -1238,13 +1391,8 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
     from spfsplatv2_tpu_torch.models import get_encoder
     from spfsplatv2_tpu_torch.models.decoder import decode_splatting
-    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda
-    from spfsplatv2_tpu_torch.training import loop
     from spfsplatv2_tpu_torch.training.optim import Optimizer
-    from spfsplatv2_tpu_torch.training.step import (
-        init_train_state,
-        make_train_step,
-    )
+    from spfsplatv2_tpu_torch.training.step import init_train_state
 
     cfg = load_config([repo / VGGT_PRESET],
                       ["checkpointing.pretrained_weights=null"])
@@ -1313,57 +1461,18 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     # ---- 20. vggt_train: make_train_step at b = 10 ---------------------
     lpips = build_lpips(seed=SEED, device=dev)
     encoder.train()
-    optimizer = Optimizer(cfg.optimizer, encoder.named_parameters())
-    state = init_train_state(encoder, optimizer)
-    batch_size = cfg.trainer.batch_size
-    batches = [train_batch(30 + i, batch_size, hw[0])
+    state = init_train_state(encoder, Optimizer(cfg.optimizer,
+                                                encoder.named_parameters()))
+    batches = [train_batch(30 + i, cfg.trainer.batch_size, hw[0])
                for i in range(VGGT_STEPS)]
-    loss_kwargs = dict(image_shape=hw, decoder_cfg=dec_cfg, loss_cfg=cfg.loss,
-                       lpips=lpips, training_context=cfg.train.training_context)
-    probes = []
-
-    def probe(mb):
-        probes.append({"microbatch": mb, "peak_gb": loop.probe_peak_gb(
-            state, batches[0], mb, loss_kwargs)})
-        return probes[-1]["peak_gb"]
-
-    budget_gb = loop.device_memory_gb(dev)
-    t0 = time.perf_counter()
-    microbatch, guard_peak = loop.fit_microbatch(probe, batch_size, None,
-                                                 budget_gb)
-    guard_s = time.perf_counter() - t0
-    microbatch = microbatch or batch_size
-    step_fn = make_train_step(encoder, optimizer, hw, dec_cfg, cfg.loss, lpips,
-                              training_context=cfg.train.training_context,
-                              microbatch=microbatch)
-    with first_k2_launch(raster_cuda) as k2_seen:
-        cuda_lib.reset_launch_counts()
-        steps = [run_train_step(torch, dev, state, step_fn, b) for b in batches]
-        train_counts = dict(cuda_lib.launch_counts)
-    cams = VGGT_STEPS * batch_size
-    want = {k: 0 for k in train_counts}
-    want.update(composite_forward=cams, composite_backward=cams,
-                cumsum_1d=2 * cams)
-    if train_counts != want:
-        fail(f"vggt_train launch counts {train_counts}, expected {want}")
-    # The steps' first K2 launch against its plain version.
-    k2_check = check_first_k2(torch, raster_cuda, k2_seen, "vggt train step")
-    for st in steps:
-        emit({"phase": "vggt_train_step", "batch": batch_size,
-              "microbatch": microbatch, **st})
-    emit({"phase": "vggt_train", "batch": batch_size, "microbatch": microbatch,
-          "guard": {"peak_gb": guard_peak, "budget_gb": budget_gb,
-                    "probes": probes, "seconds": guard_s},
-          "steps": len(steps), "launches": train_counts,
-          "step_ms": [st["ms"] for st in steps],
-          "peak_bytes": max(st["peak_bytes"] for st in steps),
-          "branches": [st["branch"] for st in steps],
-          "k2_vs_plain": k2_check, "e_pad": k2_seen["bins"].e_pad,
-          "g": k2_seen["g"]})
-    del k2_seen
-    return {"serve": serve_counts, "train": train_counts,
+    run = train_steps(torch, dev, state, cfg, hw, lpips, batches, "vggt_train")
+    for st in run["steps"]:
+        emit({"phase": "vggt_train_step", "batch": run["batch"],
+              "microbatch": run["microbatch"], **st})
+    emit({"phase": "vggt_train", **train_summary(run)})
+    return {"serve": serve_counts, "train": run["launches"],
             "render_check": render_check, "scan_ns": scan_ns,
-            "k2_check": k2_check}
+            "k2_check": run["k2_vs_plain"]}
 
 
 def vggt_cli_phase(torch, repo: Path, dev) -> dict:
@@ -1389,69 +1498,37 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
                  f"test.output_path={test_dir}", "test.save_image=false"]
     argv = ["--config", str(repo / VGGT_PRESET), *overrides]
     batch = load_config([repo / VGGT_PRESET], overrides).trainer.batch_size
-    logged, guards, saves, step_counts = {}, [], [], []
-    real = {k: getattr(loop, k) for k in ("make_train_step", "run_training",
-                                          "save_checkpoint")}
+    saves = []
 
-    def make_train_step(*args, **kwargs):
-        step = real["make_train_step"](*args, **kwargs)
+    def save_checkpoint(real):
+        def save(ckpt_dir, state, step):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            path = real(ckpt_dir, state, step)
+            saves.append({"step": step, "seconds": time.perf_counter() - t,
+                          "bytes": path.stat().st_size})
+            return path
 
-        def counted(state, batch_):
-            before = dict(cuda_lib.launch_counts)
-            out = step(state, batch_)
-            step_counts.append({k: v - before[k]
-                                for k, v in cuda_lib.launch_counts.items()})
-            return out
+        return save
 
-        return counted
-
-    def run_training(cfg_, log_fn=None, **kwargs):
-        def log(step, metrics):
-            logged.setdefault(step, {}).update(metrics)
-            log_fn(step, metrics)
-
-        result = real["run_training"](cfg_, log_fn=log, **kwargs)
-        guards.append(result["guard"])
-        return result
-
-    def save_checkpoint(ckpt_dir, state, step):
-        torch.cuda.synchronize(dev)
-        t = time.perf_counter()
-        path = real["save_checkpoint"](ckpt_dir, state, step)
-        saves.append({"step": step, "seconds": time.perf_counter() - t,
-                      "bytes": path.stat().st_size})
-        return path
-
-    for name, fn in (("make_train_step", make_train_step),
-                     ("run_training", run_training),
-                     ("save_checkpoint", save_checkpoint)):
-        setattr(loop, name, fn)
-    cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    try:
-        rc = run_cli(cli, argv)
-    finally:
-        for name, fn in real.items():
-            setattr(loop, name, fn)
-    train_s = time.perf_counter() - t0
-    train_counts = dict(cuda_lib.launch_counts)
-    gc.collect()
-    torch.cuda.empty_cache()
+    run = cli_train(torch, dev, argv, {"save_checkpoint": save_checkpoint})
+    logged = run["logged"]
     losses = [m["loss/total"] for s, m in sorted(logged.items())
               if "loss/total" in m]
-    if rc != 0 or len(saves) != 1 or len(losses) != VGGT_CLI_STEPS \
+    if run["rc"] != 0 or len(saves) != 1 or len(losses) != VGGT_CLI_STEPS \
             or not all(np.isfinite(losses)):
-        fail(f"vggt_cli train: rc {rc}, {len(saves)} saves, losses {losses}")
-    (guard,) = guards
+        fail(f"vggt_cli train: rc {run['rc']}, {len(saves)} saves, losses "
+             f"{losses}")
+    (guard,) = run["guards"]
     # Each step's own launches: one K1 and K2 and two K3 a camera (a
     # probe that runs out of memory stops part way, so the totals, which
     # add the guard's probes and the validation, are only reported).
-    want = {k: 0 for k in train_counts}
+    want = {k: 0 for k in run["launches"]}
     want.update(composite_forward=batch, composite_backward=batch,
                 cumsum_1d=2 * batch)
-    if step_counts != [want] * VGGT_CLI_STEPS:
-        fail(f"vggt_cli steps' launch counts {step_counts}, expected {want} "
-             f"each")
+    if run["step_launches"] != [want] * VGGT_CLI_STEPS:
+        fail(f"vggt_cli steps' launch counts {run['step_launches']}, expected "
+             f"{want} each")
     ckpt_path = out_dir / "checkpoints" / "step_-1"
     head = loop.load_checkpoint(ckpt_path)
     n_params = sum(t.numel() for t in head["encoder"].values())
@@ -1495,18 +1572,260 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
                if isinstance(v, float)):
         fail(f"vggt_cli test: non-finite scores {avg}")
     emit({"phase": "vggt_cli", "preset": VGGT_PRESET, "overrides": overrides,
-          "params": n_params, "train_seconds": train_s,
+          "params": n_params, "train_seconds": run["seconds"],
           "losses": losses, "guard": guard,
           "val": {k: v for m in logged.values() for k, v in m.items()
                   if k.startswith("val/")},
-          "train_launches": train_counts, "step_launches": step_counts,
+          "train_launches": run["launches"],
+          "step_launches": run["step_launches"],
           "checkpoint_save": saves[0], "validation_videos_frames_size": val_videos,
           "checkpoint_load_s": load_s, "test_launches": test_counts,
           "averages": avg,
           "request_times": json.loads((test_dir / "benchmark.json").read_text()),
           "peak_memory": json.loads((test_dir / "peak_memory.json").read_text())})
     shutil.rmtree(out_dir)
-    return {"vggt_cli_train": train_counts, "vggt_cli_test": test_counts}
+    return {"vggt_cli_train": run["launches"], "vggt_cli_test": test_counts}
+
+
+def reference_checkpoint(torch, dev, path: Path, mast3r: bool) -> dict:
+    """A seeded random state dict with a full-width DUSt3R checkpoint's key
+    names and shapes (`utils/reference_checkpoint.py`), and with `mast3r`
+    also MASt3R's local-feature heads, under "model" beside a non-tensor
+    entry as MASt3R's file holds them; written to `path`.  Returns its
+    parameter count, bytes and seconds."""
+    from spfsplatv2_tpu_torch.utils.reference_checkpoint import (
+        reference_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    sd = {k: x.cpu() for k, x in reference_state_dict(
+        SEED + (7 if mast3r else 3), mast3r=mast3r, device=dev).items()}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": sd, "args": "seeded random weights"} if mast3r else sd,
+               path)
+    return {"params": sum(x.numel() for x in sd.values()),
+            "bytes": path.stat().st_size,
+            "seconds": time.perf_counter() - t0}
+
+
+def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
+    """SPFSplat v1 at full width, phases "v1_request", "v1_train" and
+    "v1_distill"; returns each path's launch counts and checks."""
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.evaluation.evaluator import (
+        EvalConfig,
+        evaluate_example,
+    )
+    from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models import get_encoder
+    from spfsplatv2_tpu_torch.models.decoder import decode_splatting
+    from spfsplatv2_tpu_torch.training import loop
+    from spfsplatv2_tpu_torch.training.optim import Optimizer
+    from spfsplatv2_tpu_torch.training.step import init_train_state
+
+    cfg = load_config([repo / V1_PRESET],
+                      ["checkpointing.pretrained_weights=null"])
+    hw = tuple(cfg.image_shape)
+    t0 = time.perf_counter()
+    encoder = get_encoder(cfg.encoder, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in encoder.parameters())
+    emit({"phase": "v1_init", "preset": V1_PRESET, "params": n_params,
+          "seconds": time.perf_counter() - t0, "image_shape": list(hw),
+          "compute_dtype": cfg.encoder.spfsplat.backbone.compute_dtype})
+
+    # ---- v1_request: evaluate_example, 3 requests ----------------------
+    dec_cfg, eval_cfg = cfg.decoder, EvalConfig()
+    evaluate_example(encoder, request(-4, hw[0]), hw, dec_cfg, eval_cfg,
+                     device=dev)
+    requests = [request(40 + i, hw[0]) for i in range(V1_REQUESTS)]
+    resident = torch.cuda.memory_allocated(dev)
+    results, serve_counts = serve_requests(torch, dev, encoder, requests, hw,
+                                           dec_cfg, eval_cfg)
+    want = {k: 0 for k in serve_counts}
+    want.update(composite_forward=V1_REQUESTS, cumsum_1d=2 * V1_REQUESTS)
+    if serve_counts != want:
+        fail(f"v1_request launch counts {serve_counts}, expected {want}")
+    for i, res in enumerate(results):
+        vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"],
+                *res["pose_transl_err_deg"]]
+        if tuple(res["rendered"].shape) != (1, *hw, 3) or not bool(
+                torch.isfinite(res["rendered"]).all()) or not all(
+                v == v and abs(v) != float("inf") for v in vals):
+            fail(f"v1 request {i}: rendered {tuple(res['rendered'].shape)}, "
+                 f"metrics {vals}")
+    # The first request's render through K1 and K3 against their plain
+    # versions on the card, on the encoder's own Gaussians and pose.
+    c, t = requests[0]["context"], requests[0]["target"]
+    with torch.no_grad():
+        out = encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
+                      t["intrinsics"][None])
+    for key in ("pts3d", "extrinsics_c", "extrinsics_cwt", "depths"):
+        if not bool(torch.isfinite(out[key]).all()):
+            fail(f"v1 encoder output {key} is not finite")
+    cams_args = (out["extrinsics_cwt"][:, 2:], t["intrinsics"][None],
+                 t["near"][None], t["far"][None], hw, dec_cfg)
+    render_check, scan_ns = render_vs_plain(
+        torch, decode_splatting, cams_args, out["gaussians"], "v1 256^2")
+    with torch.no_grad():
+        alpha = decode_splatting(out["gaussians"], *cams_args).alpha
+    if not float(alpha.mean()) > 0.0:
+        fail("v1 request 0 renders nothing")
+    emit({"phase": "v1_request", "requests": V1_REQUESTS,
+          "launches": serve_counts,
+          "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3 for r in results],
+          "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3 for r in results],
+          "peak_bytes": [r["peak_bytes"] for r in results],
+          "resident_bytes": resident,
+          "psnr": [r["psnr"][0] for r in results],
+          "dropped_entries": [r["dropped_entries"] for r in results],
+          "alpha_mean": float(alpha.mean()),
+          "points_in_front": float((out["depths"] > 0).float().mean()),
+          "pose_t_c": out["extrinsics_c"][0, :, :3, 3].tolist(),
+          "pose_t_cwt": out["extrinsics_cwt"][0, :, :3, 3].tolist(),
+          "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns})
+    del out, results
+    torch.cuda.empty_cache()
+
+    # ---- v1_train: make_train_step at b = 12 ---------------------------
+    lpips = build_lpips(seed=SEED, device=dev)
+    encoder.train()
+    state = init_train_state(encoder, Optimizer(cfg.optimizer,
+                                                encoder.named_parameters()))
+    batches = [train_batch(50 + i, cfg.trainer.batch_size, hw[0])
+               for i in range(V1_STEPS + V1_DISTILL_STEPS)]
+    run = train_steps(torch, dev, state, cfg, hw, lpips, batches[:V1_STEPS],
+                      "v1_train")
+    if not all("loss/reproj_c2_only" in st["metrics"] for st in run["steps"]):
+        fail("v1_train: a step lacks loss/reproj_c2_only")
+    for st in run["steps"]:
+        emit({"phase": "v1_train_step", "batch": run["batch"],
+              "microbatch": run["microbatch"], **st})
+    emit({"phase": "v1_train", **train_summary(run)})
+
+    # ---- v1_distill: the full-width DUSt3R teacher --------------------
+    weights = repo / "build" / "v1" / "dust3r.pth"
+    written = reference_checkpoint(torch, dev, weights, mast3r=False)
+    t0 = time.perf_counter()
+    teacher = loop.load_distiller_params(str(weights), SEED, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights.unlink()
+    frozen = [p.detach().clone() for p in teacher.parameters()]
+    drun = train_steps(torch, dev, state, cfg, hw, lpips, batches[V1_STEPS:],
+                       "v1_distill", microbatch=run["microbatch"],
+                       distiller=teacher)
+    losses = [st["metrics"].get("loss/distillation", float("nan"))
+              for st in drun["steps"]]
+    # Above 0: the teacher's confidence clears DUSt3R's bar of 3 somewhere.
+    if not all(math.isfinite(v) and v > 0 for v in losses):
+        fail(f"v1_distill: loss/distillation {losses}")
+    if any(p.requires_grad or p.grad is not None for p in teacher.parameters()) \
+            or not all(torch.equal(a, p) for a, p in zip(frozen,
+                                                         teacher.parameters())):
+        fail("v1_distill: the teacher changed or took a gradient")
+    for st in drun["steps"]:
+        emit({"phase": "v1_distill_step", "batch": drun["batch"],
+              "microbatch": drun["microbatch"], **st})
+    emit({"phase": "v1_distill", **train_summary(drun),
+          "teacher_params": sum(p.numel() for p in teacher.parameters()),
+          "state_dict": written, "load_and_convert_s": load_s,
+          "loss_distillation": losses, "teacher_unchanged": True})
+    return {"serve": serve_counts, "train": run["launches"],
+            "distill": drun["launches"], "render_check": render_check,
+            "scan_ns": scan_ns, "k2_check": run["k2_vs_plain"],
+            "k2_check_distill": drun["k2_vs_plain"]}
+
+
+def v1_cli_phase(torch, repo: Path, dev) -> dict:
+    """Phase "v1_cli": the command line on the v1 preset, mode=train for 2
+    steps on phase 14's synthetic chunks from a MASt3R-keyed state dict
+    (`checkpointing.pretrained_weights`), then mode=test from the saved
+    checkpoint; returns each call's kernel launch counts."""
+    import numpy as np
+
+    from spfsplatv2_tpu_torch import main as cli
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.training import loop
+
+    root = repo / "build" / "cli"
+    out_dir, test_dir = root / "v1_out", root / "v1_test_out"
+    weights = repo / "build" / "v1" / "mast3r.pth"
+    written = reference_checkpoint(torch, dev, weights, mast3r=True)
+    overrides = [f"dataset.roots=[{root}]", f"trainer.max_steps={V1_CLI_STEPS}",
+                 "trainer.val_check_interval=1",
+                 f"checkpointing.pretrained_weights={weights}",
+                 f"output_dir={out_dir}", "checkpointing.every_n_train_steps=0",
+                 "train.print_log_every_n_steps=1",
+                 f"evaluation_sampler.index_path={root / 'index.json'}",
+                 f"test.output_path={test_dir}", "test.save_image=false"]
+    argv = ["--config", str(repo / V1_PRESET), *overrides]
+    batch = load_config([repo / V1_PRESET], overrides).trainer.batch_size
+    loads = []
+
+    def load_pretrained_weights(real):
+        def load(encoder, encoder_cfg, path):
+            t = time.perf_counter()
+            encoder = real(encoder, encoder_cfg, path)
+            torch.cuda.synchronize(dev)
+            loads.append(time.perf_counter() - t)
+            return encoder
+
+        return load
+
+    run = cli_train(torch, dev, argv,
+                    {"load_pretrained_weights": load_pretrained_weights})
+    weights.unlink()
+    logged = run["logged"]
+    losses = [m["loss/total"] for s, m in sorted(logged.items())
+              if "loss/total" in m]
+    c2_only = [m.get("loss/reproj_c2_only") for s, m in sorted(logged.items())
+               if "loss/total" in m]
+    if run["rc"] != 0 or len(loads) != 1 or len(losses) != V1_CLI_STEPS \
+            or not all(np.isfinite(losses)) \
+            or not all(v is not None and np.isfinite(v) for v in c2_only):
+        fail(f"v1_cli train: rc {run['rc']}, {len(loads)} weight loads, "
+             f"losses {losses}, reproj_c2_only {c2_only}")
+    (guard,) = run["guards"]
+    want = {k: 0 for k in run["launches"]}
+    want.update(composite_forward=batch, composite_backward=batch,
+                cumsum_1d=2 * batch)
+    if run["step_launches"] != [want] * V1_CLI_STEPS:
+        fail(f"v1_cli steps' launch counts {run['step_launches']}, expected "
+             f"{want} each")
+    ckpt_path = out_dir / "checkpoints" / "step_-1"
+    head = loop.load_checkpoint(ckpt_path)
+    n_params = sum(t.numel() for t in head["encoder"].values())
+    if head["step"] != V1_CLI_STEPS:
+        fail(f"v1_cli checkpoint at step {head['step']}")
+    del head
+
+    cuda_lib.reset_launch_counts()
+    rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}"])
+    test_counts = dict(cuda_lib.launch_counts)
+    targets = sum(len(e["target"]) for e in CLI_INDEX.values())
+    want = {k: 0 for k in test_counts}
+    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    scores = test_dir / "scores_all_avg.json"
+    if rc != 0 or test_counts != want or not scores.exists():
+        fail(f"v1_cli test: rc {rc}, launches {test_counts} (expected {want})")
+    avg = json.loads(scores.read_text())
+    if not all(np.isfinite(v) for k, v in avg.items() if isinstance(v, float)):
+        fail(f"v1_cli test: non-finite scores {avg}")
+    emit({"phase": "v1_cli", "preset": V1_PRESET, "overrides": overrides,
+          "params": n_params, "pretrained_state_dict": written,
+          "pretrained_load_s": loads, "train_seconds": run["seconds"],
+          "losses": losses, "reproj_c2_only": c2_only, "guard": guard,
+          "val": {k: v for m in logged.values() for k, v in m.items()
+                  if k.startswith("val/")},
+          "train_launches": run["launches"],
+          "step_launches": run["step_launches"],
+          "test_launches": test_counts, "averages": avg,
+          "request_times": json.loads((test_dir / "benchmark.json").read_text()),
+          "peak_memory": json.loads((test_dir / "peak_memory.json").read_text())})
+    shutil.rmtree(out_dir)
+    return {"v1_cli_train": run["launches"], "v1_cli_test": test_counts}
 
 
 def demo_phase(torch, repo: Path, dev) -> dict:
@@ -2602,7 +2921,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     vggt_cli_counts = vggt_cli_phase(torch, repo, dev)
+
+    # ---- 22-25. SPFSplat v1 ----------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1 = v1_phases(torch, repo, dev, request, train_batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    v1_cli_counts = v1_cli_phase(torch, repo, dev)
     shutil.rmtree(repo / "build" / "cli")
+    shutil.rmtree(repo / "build" / "v1", ignore_errors=True)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
 
     # ---- kernels line, card, result -----------------------------------
@@ -2621,7 +2949,10 @@ def main() -> int:
              "train_1024_f32_2_steps": f32["train"],
              "demo_1024": demo_out["counts"], **cli_counts,
              "vggt_serve_3_requests": vggt["serve"],
-             "vggt_train_2_steps": vggt["train"], **vggt_cli_counts}
+             "vggt_train_2_steps": vggt["train"], **vggt_cli_counts,
+             "v1_serve_3_requests": v1["serve"],
+             "v1_train_2_steps": v1["train"],
+             "v1_distill_2_steps": v1["distill"], **v1_cli_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -2695,7 +3026,10 @@ def main() -> int:
                        for key, c in demo_out["render_check"].items()},
                    "render_vggt_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
-                       for key, c in vggt["render_check"].items()}}},
+                       for key, c in vggt["render_check"].items()},
+                   "render_v1_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in v1["render_check"].items()}}},
         {"name": "composite_backward", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/composite_backward.cu",
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:295",
@@ -2707,7 +3041,9 @@ def main() -> int:
                    "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),
                    "camera_1024_vs_plain": k2_long,
                    "train_1024_f32_step_vs_plain": f32["k2_check"],
-                   "vggt_train_step_vs_plain": vggt["k2_check"]}},
+                   "vggt_train_step_vs_plain": vggt["k2_check"],
+                   "v1_train_step_vs_plain": v1["k2_check"],
+                   "v1_distill_step_vs_plain": v1["k2_check_distill"]}},
         {"name": "cumsum_1d", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:108",
@@ -2717,7 +3053,8 @@ def main() -> int:
                    "f32_max_abs_err": max(c["f32_max_abs_err"]
                                           for c in checks),
                    "int32_exact_on_1024_binning_inputs_n": scan_ns,
-                   "int32_exact_on_vggt_binning_inputs_n": vggt["scan_ns"]}},
+                   "int32_exact_on_vggt_binning_inputs_n": vggt["scan_ns"],
+                   "int32_exact_on_v1_binning_inputs_n": v1["scan_ns"]}},
         {"name": "segmented_scan", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/segmented_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:32",

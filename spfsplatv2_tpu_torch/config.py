@@ -62,7 +62,7 @@ class TrainFlags:
     random_drop_context_views: bool = False
     random_drop_target_views: bool = False
     # Distillation teacher: "" disables; "dust3r"/"mast3r" enable the frozen
-    # teacher for the first distill_max_steps steps (not ported: raises).
+    # teacher (training/loop.py) for the steps up to distill_max_steps.
     distiller: str = ""
     distiller_weights: Optional[str] = None
     distill_max_steps: int = 0

@@ -5,7 +5,8 @@ serving path of `python -m spfsplatv2_tpu_torch.main mode=test`:
     encoder call) or joint encoding;
   * optional test-time pose alignment through the renderer
     (`pose_align.align_poses`, kernel K2 on the card);
-  * rendering the targets at the predicted poses with GT intrinsics;
+  * rendering the targets at the predicted poses with GT intrinsics, or
+    with `use_estimated_focal` the encoder's estimated ones;
   * PSNR / SSIM / LPIPS and pose errors, bucketed by context overlap;
   * artifacts: `<output_path>/<scene>/color/<index:06>.png` per target
     view, with `save_video` the target frames as
@@ -13,7 +14,6 @@ serving path of `python -m spfsplatv2_tpu_torch.main mode=test`:
     and `summarize_and_dump`'s `scores_all.json`,
     `scores_all_avg.json`, `scores_sub_avg.json` (per-overlap buckets),
     `benchmark.json` and `peak_memory.json`.
-`use_estimated_focal` is not ported and raises.
 
 The path runs under `torch.no_grad()` (the pose alignment enables
 autograd for itself) with TF32 off for matmuls and cuDNN convolutions
@@ -96,8 +96,6 @@ def evaluate_example(
     `lpips_params` is a `losses.lpips.LPIPS` module; its score is stored
     as "lpips", or "lpips_uncalibrated" unless `lpips_calibrated`.
     """
-    if eval_cfg.use_estimated_focal:
-        raise NotImplementedError("use_estimated_focal is not ported yet")
     device = torch.device(device)
     disable_tf32()
     bench = benchmarker or Benchmarker(device)
@@ -115,6 +113,11 @@ def evaluate_example(
         return decode_splatting(gaussians, poses, intr, near_, far_,
                                 image_shape, decoder_cfg)
 
+    def target_intrinsics(out, gt):
+        if eval_cfg.use_estimated_focal and "intrinsics_cwt" in out:
+            return out["intrinsics_cwt"][:, v_cxt:]
+        return gt
+
     def align(gaussians, poses, intr, near_, far_, images):
         if not eval_cfg.align_pose:
             return poses
@@ -130,11 +133,12 @@ def evaluate_example(
             sl = slice(t, t + 1)
             with bench.time("encoder"):
                 out = encoder(ctx_img, ctx_k, tgt_img[:, sl], tgt_k[:, sl])
+            intr_t = target_intrinsics(out, tgt_k[:, sl])
             pose_t = align(out["gaussians"], out["extrinsics_cwt"][:, v_cxt:],
-                           tgt_k[:, sl], near[:, sl], far[:, sl], tgt_img[:, sl])
+                           intr_t, near[:, sl], far[:, sl], tgt_img[:, sl])
             with bench.time("decoder", num_calls=1):
                 rendered = render_targets(out["gaussians"], pose_t,
-                                          tgt_k[:, sl], near[:, sl], far[:, sl])
+                                          intr_t, near[:, sl], far[:, sl])
             colors.append(rendered.color)
             poses_out.append(pose_t)
             dropped.append(rendered.dropped_entries)
@@ -144,10 +148,11 @@ def evaluate_example(
     else:
         with bench.time("encoder"):
             out = encoder(ctx_img, ctx_k, tgt_img, tgt_k)
+        intr = target_intrinsics(out, tgt_k)
         pred_tgt_poses = align(out["gaussians"], out["extrinsics_cwt"][:, v_cxt:],
-                               tgt_k, near, far, tgt_img)
+                               intr, near, far, tgt_img)
         with bench.time("decoder", num_calls=v_tgt):
-            rendered = render_targets(out["gaussians"], pred_tgt_poses, tgt_k,
+            rendered = render_targets(out["gaussians"], pred_tgt_poses, intr,
                                       near, far)
         pred = rendered.color[0]
         dropped_entries = rendered.dropped_entries

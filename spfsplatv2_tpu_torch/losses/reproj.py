@@ -51,8 +51,13 @@ def reproj_loss(
     intrinsics: torch.Tensor,  # (b, 3, 3) normalized GT intrinsics
     global_step: int,
     cfg: ReprojConfig = ReprojConfig(),
+    detach_pts3d: bool = False,
 ) -> torch.Tensor:
+    """`detach_pts3d`: the points carry no gradient through this term
+    (the pose-only term of the SPFSplat v1 loss)."""
     b, h, w, _ = pts3d.shape
+    if detach_pts3d:
+        pts3d = pts3d.detach()
     scale = torch.tensor([[w, w, w], [h, h, h], [1.0, 1.0, 1.0]],
                          dtype=intrinsics.dtype, device=intrinsics.device)
     pred_px = se3.project_to_cam(pts3d.reshape(b, h * w, 3), c2w,

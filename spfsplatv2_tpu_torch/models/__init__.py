@@ -3,9 +3,9 @@
 
 `EncoderSelectorConfig` is the config-side selector (the YAML/CLI
 surface is `encoder.name=... encoder.<name>.<field>=...`) and
-`get_encoder` builds the chosen variant: the flagship "spfsplatv2"
-(masked CroCo backbone) or "spfsplatv2l" (VGGT-1B).  "spfsplat" (v1)
-loads its config and raises when built.
+`get_encoder` builds the chosen variant: "spfsplat" (v1, the unmasked
+CroCo backbone), the flagship "spfsplatv2" (masked CroCo backbone) or
+"spfsplatv2l" (VGGT-1B).
 """
 
 from __future__ import annotations
@@ -14,17 +14,15 @@ from dataclasses import dataclass, field
 
 import torch
 
-from spfsplatv2_tpu_torch.models import encoder, encoder_vggt
+from spfsplatv2_tpu_torch.models import encoder, encoder_spfsplat, encoder_vggt
 from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
+from spfsplatv2_tpu_torch.models.encoder_spfsplat import SPFSplatConfig
 from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LConfig
-from spfsplatv2_tpu_torch.models.variant_configs import SPFSplatConfig
 
-ENCODERS = ("spfsplat", "spfsplatv2", "spfsplatv2l")
-_BUILDERS = {"spfsplatv2": encoder.build_encoder,
+_BUILDERS = {"spfsplat": encoder_spfsplat.build_encoder,
+             "spfsplatv2": encoder.build_encoder,
              "spfsplatv2l": encoder_vggt.build_encoder}
-_NOT_PORTED = {
-    "spfsplat": "the SPFSplat v1 encoder is not ported (ROADMAP.md item 17)",
-}
+ENCODERS = tuple(_BUILDERS)
 
 
 @dataclass(frozen=True)
@@ -47,7 +45,4 @@ def get_encoder(cfg: EncoderSelectorConfig, seed: int = 0,
                 device: str | torch.device = "cuda"):
     """Build the configured encoder on `device`, initialised from a
     seeded generator (each variant's `build_encoder`)."""
-    variant = cfg.variant_cfg
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[cfg.name])
-    return _BUILDERS[cfg.name](variant, seed=seed, device=device)
+    return _BUILDERS[cfg.name](cfg.variant_cfg, seed=seed, device=device)

@@ -8,8 +8,8 @@ view-block mask (context views cannot see target views; no view sees
 itself).  Per-view intrinsics and learnable pose tokens sit at positions
 (gh, 0) and (gh + 1, 0).  `remat` recomputes each transformer block in
 the backward pass (activation checkpointing, only while autograd
-records), as the JAX config's `remat` does.  The ManyAR patch embed is
-not ported.
+records), as the JAX config's `remat` does.  The "manyar" patch embed
+takes mixed portrait/landscape views (`true_shapes`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from spfsplatv2_tpu_torch.models.croco.layers import (
     Dense,
     EncoderBlock,
     LayerNorm,
+    ManyARPatchEmbed,
     Mlp,
     PatchEmbed,
     SelfAttention,
@@ -50,7 +51,8 @@ class CrocoBackboneConfig:
     rope_base: float = 100.0
     intrinsics_token: bool = True
     pose_token: bool = True
-    # "dust3r"; the JAX package's "manyar" embed is not ported and raises.
+    # "dust3r" (square or landscape views) or "manyar" (mixed portrait and
+    # landscape views through `true_shapes`).
     patch_embed_cls: str = "dust3r"
     compute_dtype: str = "bfloat16"
     # Recompute transformer blocks in the backward pass: O(depth) activation
@@ -146,13 +148,15 @@ class MultiViewDecoderBlock(nn.Module):
 class MaskedCrocoBackbone(nn.Module):
     def __init__(self, cfg: CrocoBackboneConfig = CrocoBackboneConfig()):
         super().__init__()
-        if cfg.patch_embed_cls != "dust3r":
-            raise NotImplementedError(
-                f"patch_embed_cls={cfg.patch_embed_cls!r} is not ported")
+        embeds = {"dust3r": PatchEmbed, "manyar": ManyARPatchEmbed}
+        if cfg.patch_embed_cls not in embeds:
+            raise ValueError(
+                f"patch_embed_cls={cfg.patch_embed_cls!r}; options: "
+                f"{sorted(embeds)}")
         self.cfg = cfg
         cdt = cfg.dtype
         e, d = cfg.enc_embed_dim, cfg.dec_embed_dim
-        self.patch_embed = PatchEmbed(cfg.patch_size, e, cdt)
+        self.patch_embed = embeds[cfg.patch_embed_cls](cfg.patch_size, e, cdt)
         self.enc_blocks = nn.ModuleList(
             EncoderBlock(e, cfg.enc_num_heads, cfg.mlp_ratio, cfg.rope_base, cdt)
             for _ in range(cfg.enc_depth)
@@ -177,9 +181,11 @@ class MaskedCrocoBackbone(nn.Module):
         self.dec_norm = LayerNorm(d)
 
     def forward(self, images, intrinsics=None, num_target: int = 0,
-                view_valid=None):
+                view_valid=None, true_shapes=None):
         """images (b, v, h, w, 3) normalized to [-1, 1]; intrinsics
-        (b, v, 3, 3); the trailing `num_target` views are targets.
+        (b, v, 3, 3); the trailing `num_target` views are targets;
+        `true_shapes` (b, v, 2), each view's real (h, w) for the "manyar"
+        embed (portrait views stored transposed; default: as stored).
 
         Returns {"dec_feat": [(b, v, p, c)] * (dec_depth + 1) float32,
         "pose_feat": [(b, v, 1, c)] or None, "grid": (gh, gw)}.
@@ -208,7 +214,14 @@ class MaskedCrocoBackbone(nn.Module):
                 return checkpoint(blk, *args, use_reentrant=False)
             return blk(*args)
 
-        x, pos = self.patch_embed(images.reshape(b * v, h, w, 3))
+        flat = images.reshape(b * v, h, w, 3)
+        if cfg.patch_embed_cls == "manyar":
+            if true_shapes is None:
+                true_shapes = torch.tensor([h, w], device=images.device).expand(
+                    b, v, 2)
+            x, pos = self.patch_embed(flat, true_shapes.reshape(b * v, 2))
+        else:
+            x, pos = self.patch_embed(flat)
         for blk in self.enc_blocks:
             x = run(blk, x, pos)
         x = self.enc_norm(x)

@@ -198,3 +198,26 @@ class PatchEmbed(nn.Module):
         )
         pos = torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
         return x, pos[None].expand(b, gh * gw, 2)
+
+
+class ManyARPatchEmbed(PatchEmbed):
+    """Mixed portrait/landscape patch embed (ManyAR).
+
+    Every image is stored landscape (w >= h buffer); `true_shapes` (b, 2)
+    gives each image's real (height, width).  A portrait image is embedded
+    from the transposed buffer with transposed (y, x) positions.  Both
+    orientations go through the shared conv and each image selects its
+    own, so every portrait/landscape mix runs the same program.
+    """
+
+    def forward(self, images, true_shapes):
+        """(b, h, w, 3) landscape buffers + (b, 2) true (h, w) -> tokens
+        (b, n, c), positions (b, n, 2)."""
+        b, h, w, _ = images.shape
+        if w < h:
+            raise ValueError(f"ManyAR buffers must be landscape, got {h}x{w}")
+        x_land, pos_land = super().forward(images)
+        x_port, pos_port = super().forward(images.transpose(1, 2))
+        landscape = (true_shapes[:, 1] >= true_shapes[:, 0])[:, None, None]
+        return (torch.where(landscape, x_land, x_port),
+                torch.where(landscape, pos_land, pos_port))

@@ -7,8 +7,10 @@ view 0, head 2 for the rest, folded into the batch); dual MLP pose heads
 on the pose token; 6D -> SE3 pose post-processing relative to view 0; and
 the unified Gaussian adapter.  `remat_heads` recomputes the DPT heads in
 the backward pass (activation checkpointing, only while autograd
-records), as the JAX config does.  Focal estimation (`estimating_focal`)
-is not ported.
+records), as the JAX config does.  `estimating_focal` adds the
+intrinsics estimated from view 0's pointmap (`intrinsics_cwt`).  The
+SPFSplat v1 encoder (`encoder_spfsplat.py`) shares the heads, their
+seeded init, the pose post-processing and the Gaussian assembly.
 
 Weights come from `utils/from_flax.py` (a flax param tree) or from
 `init_weights(generator)`, a seeded init with the flax initializers'
@@ -24,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from spfsplatv2_tpu_torch.geometry import se3
+from spfsplatv2_tpu_torch.geometry.intrinsics import estimate_intrinsics
 from spfsplatv2_tpu_torch.models.adapter import (
     map_pdf_to_opacity,
     raw_gaussian_channels,
@@ -63,7 +66,6 @@ class SPFSplatV2Config:
     dpt_last_dim: int = 128
     dpt_layer_dims: tuple[int, ...] = (96, 192, 384, 768)
     estimating_pose: bool = True
-    # Focal estimation is not ported; the encoder raises when it is set.
     estimating_focal: bool = False
     pose_make_baseline_1: bool = False
     pose_make_relative: bool = True
@@ -77,11 +79,17 @@ class SPFSplatV2Config:
 class SPFSplatV2Encoder(nn.Module):
     def __init__(self, cfg: SPFSplatV2Config = SPFSplatV2Config()):
         super().__init__()
-        if cfg.estimating_focal:
-            raise NotImplementedError("estimating_focal is not ported yet")
         self.cfg = cfg
         bb = cfg.backbone
         self.backbone = MaskedCrocoBackbone(bb)
+        self._build_heads(bb.dec_embed_dim)
+
+    def _build_heads(self, pose_dim: int) -> None:
+        """The dual DPT pointmap and Gaussian heads (on the encoder
+        features and 3 decoder layers) and, with `estimating_pose`, the
+        dual pose heads on `pose_dim`-wide tokens."""
+        cfg = self.cfg
+        bb = cfg.backbone
         in_dims = (bb.enc_embed_dim,) + (bb.dec_embed_dim,) * 3
         gs_dim = raw_gaussian_channels(cfg.sh_degree)
         for s in ("1", "2"):
@@ -94,8 +102,7 @@ class SPFSplatV2Encoder(nn.Module):
                 layer_dims=cfg.dpt_layer_dims,
             ))
             if cfg.estimating_pose:
-                setattr(self, f"pose_head{s}",
-                        PoseHead(bb.dec_embed_dim, cfg.pose_head))
+                setattr(self, f"pose_head{s}", PoseHead(pose_dim, cfg.pose_head))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "SPFSplatV2Encoder":
@@ -109,7 +116,8 @@ class SPFSplatV2Encoder(nn.Module):
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
-        if self.cfg.backbone.pose_token:
+        if (isinstance(self.backbone, MaskedCrocoBackbone)
+                and self.cfg.backbone.pose_token):
             pt = self.backbone.pose_token
             pt.copy_(torch.randn(pt.shape, generator=generator,
                                  device=pt.device))
@@ -128,8 +136,9 @@ class SPFSplatV2Encoder(nn.Module):
                 ph.fc_rot.bias.copy_(torch.tensor([1.0, 0, 0, 0, 1.0, 0]))
         return self
 
-    def _run_dual_heads(self, prefix, dec_feat, grid, extra=None):
-        """head1 on view 0, head2 on views 1..v-1; returns (b, v, h, w, c)."""
+    def _run_dual_heads(self, prefix, dec_feat, grid, remat, extra=None):
+        """head1 on view 0, head2 on views 1..v-1, recomputed in the
+        backward pass when `remat`; returns (b, v, h, w, c)."""
         hooked = [dec_feat[i] for i in dpt_hooks(len(dec_feat) - 1)]
         b, v = hooked[0].shape[:2]
 
@@ -142,7 +151,7 @@ class SPFSplatV2Encoder(nn.Module):
             args1 += (extra[:, 0],)
             args2 += (extra[:, 1:].reshape(-1, *extra.shape[2:]),)
         def run(head, args):
-            if self.cfg.remat_heads and torch.is_grad_enabled():
+            if remat and torch.is_grad_enabled():
                 return checkpoint(head, *args, use_reentrant=False)
             return head(*args)
 
@@ -162,7 +171,7 @@ class SPFSplatV2Encoder(nn.Module):
         target_valid: torch.Tensor | None = None,   # (v_tgt,)
     ) -> dict:
         cfg = self.cfg
-        b, v_cxt, h, w, _ = context_images.shape
+        v_cxt = context_images.shape[1]
         v_tgt = 0 if target_images is None else target_images.shape[1]
         dev = context_images.device
 
@@ -185,23 +194,37 @@ class SPFSplatV2Encoder(nn.Module):
         dec_feat, pose_feat, grid = out["dec_feat"], out["pose_feat"], out["grid"]
         ctx_feat = [t[:, :v_cxt] for t in dec_feat]
 
-        raw_pts = self._run_dual_heads("downstream_head", ctx_feat, grid)
+        raw_pts = self._run_dual_heads("downstream_head", ctx_feat, grid,
+                                       cfg.remat_heads)
         pts3d = pts3d_postprocess(raw_pts, mode="exp")   # (b, v_cxt, h, w, 3)
-        gs_dim = raw_gaussian_channels(cfg.sh_degree)
         raw_gs = self._run_dual_heads("gaussian_param_head", ctx_feat, grid,
-                                      extra=images[:, :v_cxt])
+                                      cfg.remat_heads, extra=images[:, :v_cxt])
 
         extrinsics_c = extrinsics_cwt = None
         if cfg.estimating_pose:
-            tokens = pose_feat[-1]                        # (b, v, 1, c)
-            v = tokens.shape[1]
-            p1 = self.pose_head1(tokens[:, 0])
-            p2 = self.pose_head2(tokens[:, 1:].reshape(b * (v - 1), 1, -1))
-            enc = torch.cat([p1[:, None], p2.reshape(b, v - 1, 9)], dim=1)
-            poses = self._process_pose(enc, v_cxt)
+            poses = self._process_pose(self._pose_pass(pose_feat[-1]), v_cxt)
             extrinsics_c = poses[:, :v_cxt]
             extrinsics_cwt = poses
+        return self._assemble(pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
+                              global_step, v_cxt + v_tgt, context_valid)
 
+    def _pose_pass(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (b, v, n, c), pooled over n by the heads: head 1 on
+        view 0, head 2 on the rest -> 9D encodings (b, v, 9)."""
+        b, v = tokens.shape[:2]
+        p1 = self.pose_head1(tokens[:, 0])
+        p2 = self.pose_head2(tokens[:, 1:].reshape(b * (v - 1), *tokens.shape[2:]))
+        return torch.cat([p1[:, None], p2.reshape(b, v - 1, 9)], dim=1)
+
+    def _assemble(self, pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
+                  global_step, v_all: int, context_valid=None) -> dict:
+        """The encoder's output dict: Gaussians from the context views'
+        points and raw head channels (opacities zeroed for dropped context
+        views), depths from the context poses, and with `estimating_focal`
+        view 0's estimated intrinsics for all `v_all` views."""
+        cfg = self.cfg
+        b, v_cxt, h, w, _ = pts3d.shape
+        gs_dim = raw_gs.shape[-1]
         densities = torch.sigmoid(raw_gs[..., 0])
         om = cfg.opacity_mapping
         opacities = map_pdf_to_opacity(densities, global_step, om.initial,
@@ -222,7 +245,7 @@ class SPFSplatV2Encoder(nn.Module):
             depths = se3.depth_from_pose(
                 pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
             ).reshape(b, v_cxt, h, w)
-        return {
+        out = {
             "gaussians": gaussians,
             "extrinsics_c": extrinsics_c,
             "extrinsics_cwt": extrinsics_cwt,
@@ -230,6 +253,12 @@ class SPFSplatV2Encoder(nn.Module):
             "depths": depths,
             "densities": densities,
         }
+        if cfg.estimating_focal:
+            # View 0's camera frame is the world frame after the relative
+            # normalization; its focal holds for every view.
+            k_pred = estimate_intrinsics(pts3d)
+            out["intrinsics_cwt"] = k_pred[:, None].expand(b, v_all, 3, 3)
+        return out
 
     def _process_pose(self, pose_enc: torch.Tensor, v_cxt: int) -> torch.Tensor:
         """9D encodings -> c2w poses, baseline-1 / relative normalization."""
@@ -238,8 +267,9 @@ class SPFSplatV2Encoder(nn.Module):
             a = poses[:, 0, :3, 3]
             c = poses[:, v_cxt - 1, :3, 3]
             scale = torch.linalg.norm(a - c, dim=-1)[:, None, None]
-            poses = poses.clone()
-            poses[:, :, :3, 3] = poses[:, :, :3, 3] / torch.clamp(scale, min=1e-8)
+            t = poses[:, :, :3, 3:] / torch.clamp(scale, min=1e-8)[..., None]
+            poses = torch.cat([torch.cat([poses[:, :, :3, :3], t], dim=-1),
+                               poses[:, :, 3:]], dim=-2)
         if self.cfg.pose_make_relative:
             poses = se3.camera_normalization(poses[:, 0:1], poses)
         return poses

@@ -14,8 +14,10 @@ What differs from the JAX loop:
     `step_<n>/` directory (`save_checkpoint`);
   * each logged step also carries `time/data_wait_ms`, the host time the
     step waited for its batch.
-Pretrained MASt3R weights (ROADMAP.md item 18) and the distillation
-teacher (item 17) are not ported and raise.
+`checkpointing.pretrained_weights` loads a MASt3R / DUSt3R / SPFSplat
+state dict through `utils/ckpt_convert.py`; `train.distiller` adds the
+frozen DUSt3R teacher (`models/distiller.py`) for the steps up to
+`train.distill_max_steps`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ from spfsplatv2_tpu_torch.data.dataset import (
 )
 from spfsplatv2_tpu_torch.losses.lpips import get_lpips
 from spfsplatv2_tpu_torch.models import get_encoder
+from spfsplatv2_tpu_torch.models.distiller import (
+    DistillerConfig,
+    Dust3RDistiller,
+    build_distiller,
+)
 from spfsplatv2_tpu_torch.training.optim import FreezeConfig, Optimizer
 from spfsplatv2_tpu_torch.training.step import (
     HBMBudgetError,
@@ -247,16 +254,17 @@ def run_training(
     the memory guard's chosen microbatch, its peak (GiB, None off the
     card), each probe's microbatch and peak, and its seconds.
     """
-    if cfg.checkpointing.pretrained_weights:
-        raise NotImplementedError(
-            "checkpointing.pretrained_weights: the MASt3R checkpoint "
-            "conversion is not ported (ROADMAP.md item 18); set it to null")
-    if cfg.train.distiller and cfg.train.distill_max_steps > 0:
-        raise NotImplementedError(
-            "train.distiller: pointmap distillation is not ported "
-            "(ROADMAP.md item 17)")
     device = torch.device(device)
     encoder = get_encoder(cfg.encoder, seed=cfg.trainer.seed, device=device)
+    if cfg.checkpointing.pretrained_weights:
+        load_pretrained_weights(encoder, cfg.encoder,
+                                cfg.checkpointing.pretrained_weights)
+    # The DUSt3R teacher for the first `distill_max_steps` steps: a step
+    # with it and one without it, switched at the cutoff.
+    distiller = None
+    if cfg.train.distiller and cfg.train.distill_max_steps > 0:
+        distiller = load_distiller_params(cfg.train.distiller_weights,
+                                          cfg.trainer.seed, device)
     entries = dataset_entries(cfg)
     train_datasets = [
         ChunkedSceneDataset(
@@ -342,6 +350,9 @@ def run_training(
     loss_kwargs = dict(image_shape=image_shape, decoder_cfg=cfg.decoder,
                        loss_cfg=cfg.loss, lpips=lpips,
                        training_context=cfg.train.training_context)
+    # The guard probes the first step that will run.
+    distilling = distiller is not None and start_step <= cfg.train.distill_max_steps
+    probe_kwargs = {**loss_kwargs, "distiller": distiller if distilling else None}
     probe_batch = first
     if dropping:
         probe_batch = random_drop_views(first, np.random.default_rng(0),
@@ -355,7 +366,7 @@ def run_training(
 
     def probe(mb):
         probes.append({"microbatch": mb, "peak_gb": probe_peak_gb(
-            state, probe_dev, mb, loss_kwargs)})
+            state, probe_dev, mb, probe_kwargs)})
         return probes[-1]["peak_gb"]
 
     t_guard = time.perf_counter()
@@ -368,6 +379,12 @@ def run_training(
     run_step = make_train_step(
         encoder, optimizer, image_shape, cfg.decoder, cfg.loss, lpips,
         training_context=cfg.train.training_context, microbatch=microbatch)
+    distill_step = None
+    if distiller is not None:
+        distill_step = make_train_step(
+            encoder, optimizer, image_shape, cfg.decoder, cfg.loss, lpips,
+            training_context=cfg.train.training_context, distiller=distiller,
+            microbatch=microbatch)
 
     batch = first
     t_start = time.perf_counter()
@@ -375,7 +392,9 @@ def run_training(
         state_holder["step"] = step
         if dropping:
             batch = random_drop_views(batch, rng, drop_cfg)
-        state, metrics = run_step(state, to_device(batch, device))
+        fn = (distill_step if distill_step is not None
+              and step <= cfg.train.distill_max_steps else run_step)
+        state, metrics = fn(state, to_device(batch, device))
         if log_fn is not None and step % cfg.train.print_log_every_n_steps == 0:
             logged = {k: float(v) for k, v in metrics.items()}
             if peak_gb is not None:
@@ -426,6 +445,55 @@ def run_training(
     )
     return {"state": state, "metrics": metrics, "encoder": encoder,
             "guard": guard}
+
+
+def _read_state_dict(path: str) -> dict:
+    """A torch checkpoint file's weights: its "model" or "state_dict"
+    entry when it has one (the file is unpickled in full, as JAX does:
+    MASt3R's holds its training arguments beside the weights)."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    return sd.get("model", sd.get("state_dict", sd))
+
+
+def load_pretrained_weights(encoder: torch.nn.Module, encoder_cfg,
+                            path: str) -> torch.nn.Module:
+    """Load a MASt3R / SPFSplat checkpoint into a CroCo encoder in place
+    (`utils/ckpt_convert.py`); what the file lacks keeps its seeded init."""
+    from spfsplatv2_tpu_torch.utils.ckpt_convert import (
+        convert_spfsplat_checkpoint,
+        merge_params,
+    )
+
+    if encoder_cfg.name == "spfsplatv2l":
+        raise ValueError(
+            f"checkpointing.pretrained_weights takes a MASt3R or SPFSplat "
+            f"checkpoint of a CroCo encoder; encoder.name={encoder_cfg.name} "
+            f"has none (see utils/ckpt_convert_vggt.py for VGGT weights)")
+    bb = encoder_cfg.variant_cfg.backbone
+    converted = convert_spfsplat_checkpoint(
+        _read_state_dict(path), enc_depth=bb.enc_depth,
+        dec_depth=bb.dec_depth, patch_hw=(bb.patch_size, bb.patch_size))
+    return merge_params(encoder, converted)
+
+
+def load_distiller_params(weights_path: Optional[str], seed: int,
+                          device: str | torch.device,
+                          cfg: DistillerConfig = DistillerConfig()
+                          ) -> Dust3RDistiller:
+    """The frozen DUSt3R teacher: seeded, then (given a checkpoint file)
+    DUSt3R / MASt3R weights converted over it."""
+    from spfsplatv2_tpu_torch.utils.ckpt_convert import (
+        convert_dust3r_distiller_checkpoint,
+        merge_params,
+    )
+
+    distiller = build_distiller(cfg, seed=seed, device=device)
+    if weights_path:
+        bb = cfg.backbone
+        merge_params(distiller, convert_dust3r_distiller_checkpoint(
+            _read_state_dict(weights_path), enc_depth=bb.enc_depth,
+            dec_depth=bb.dec_depth, patch_hw=(bb.patch_size, bb.patch_size)))
+    return distiller
 
 
 def checkpoint_dict(state: TrainState) -> dict:

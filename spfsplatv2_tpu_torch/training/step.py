@@ -2,14 +2,14 @@
 `spfsplatv2_tpu/training/step.py`).
 
 `compute_losses` is the JAX function's forward and losses (MSE, LPIPS,
-reprojection of the predicted context poses, view-validity masks,
-`training_context`, the dropped-entries counter and the pose telemetry).
-`make_train_step` returns `step(state, batch) -> (state, metrics)`: the
-backward pass, optionally accumulated over equal microbatches, then one
-update of `training/optim.py:Optimizer`.  PyTorch updates the parameters
-in place, so the state holds the encoder and the optimizer.  The
-distillation branch, the SPFSplat v1 branch and the multi-device branch
-are not ported.
+reprojection of the predicted context poses, SPFSplat v1's pose-only
+reprojection term, distillation from a frozen DUSt3R teacher,
+view-validity masks, `training_context`, the dropped-entries counter
+and the pose telemetry).  `make_train_step` returns `step(state, batch)
+-> (state, metrics)`: the backward pass, optionally accumulated over
+equal microbatches, then one update of `training/optim.py:Optimizer`.
+PyTorch updates the parameters in place, so the state holds the encoder
+and the optimizer.  The multi-device branch is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from spfsplatv2_tpu_torch.evaluation.evaluator import disable_tf32
 from spfsplatv2_tpu_torch.geometry import se3
 from spfsplatv2_tpu_torch.losses.lpips import lpips_distances, lpips_loss
 from spfsplatv2_tpu_torch.losses.mse import mse_loss
+from spfsplatv2_tpu_torch.losses.point import regr3d_loss
 from spfsplatv2_tpu_torch.losses.reproj import ReprojConfig, reproj_loss
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
 from spfsplatv2_tpu_torch.training.optim import Optimizer
@@ -73,9 +74,9 @@ def compute_losses(
     `batch` holds "context" and "target" dicts of (b, v, ...) tensors
     ("image", "intrinsics", "near", "far", optionally "extrinsics") and
     optionally "context_valid" / "target_valid" (v,) view masks.
+    `distiller`: a frozen `models/distiller.py:Dust3RDistiller`, whose
+    pointmaps of the first two context views supervise the student's.
     """
-    if distiller is not None:
-        raise NotImplementedError("pointmap distillation is not ported yet")
     ctx, tgt = batch["context"], batch["target"]
     v_cxt = ctx["image"].shape[1]
     ctx_valid = batch.get("context_valid")
@@ -86,8 +87,6 @@ def compute_losses(
         enc_kwargs = dict(context_valid=ctx_valid, target_valid=tgt_valid)
     enc_out = encoder(ctx["image"], ctx["intrinsics"], tgt["image"],
                       tgt["intrinsics"], global_step=global_step, **enc_kwargs)
-    if enc_out.get("variant") == "spfsplat":
-        raise NotImplementedError("the SPFSplat v1 loss branch is not ported yet")
 
     if enc_out["extrinsics_cwt"] is not None:
         target_extrinsics = enc_out["extrinsics_cwt"][:, v_cxt:]
@@ -163,16 +162,44 @@ def compute_losses(
         metrics["loss/reproj_c1"] = c1
         metrics["loss/reproj_c2"] = c2
         total = total + c1 + c2
+        # SPFSplat v1: a pose-only term (points detached) on the poses of
+        # the context-only decoder pass.
+        if (enc_out.get("variant") == "spfsplat"
+                and enc_out.get("extrinsics_c") is not None):
+            c2_only = 0.0
+            for i in range(1, v_cxt):
+                term = reproj_loss(pts3d[:, i], enc_out["extrinsics_c"][:, i],
+                                   ctx["intrinsics"][:, i], global_step,
+                                   loss_cfg.reproj, detach_pts3d=True)
+                if ctx_valid is not None:
+                    term = term * ctx_valid[i].to(term.dtype)
+                c2_only = c2_only + term
+            c2_only = c2_only / n_kept
+            metrics["loss/reproj_c2_only"] = c2_only
+            total = total + c2_only
 
-        # Pose error against GT (telemetry, not a loss).
-        if "extrinsics" in ctx:
-            with torch.no_grad():
-                pred_c = context_extrinsics[:, v_cxt - 1]
-                gt_c = ctx["extrinsics"][:, v_cxt - 1]
-                metrics["pose/context_rot_deg"] = torch.mean(
-                    se3.rotation_angle_deg(pred_c[:, :3, :3], gt_c[:, :3, :3]))
-                metrics["pose/context_transl_deg"] = torch.mean(
-                    se3.translation_angle_deg(pred_c[:, :3, 3], gt_c[:, :3, 3]))
+    # Pointmap distillation against the frozen teacher, which keeps no
+    # activations.
+    if distiller is not None:
+        with torch.no_grad():
+            pseudo = distiller(ctx["image"][:, :2])
+        gt_pts, conf = pseudo["pts3d"], pseudo["conf"]
+        pr_pts = enc_out["pts3d"]
+        distill = 0.1 * regr3d_loss(
+            gt_pts[:, 0], gt_pts[:, 1], pr_pts[:, 0].reshape(gt_pts[:, 0].shape),
+            pr_pts[:, 1].reshape(gt_pts[:, 1].shape), conf[:, 0], conf[:, 1])
+        metrics["loss/distillation"] = distill
+        total = total + distill
+
+    # Pose error against GT (telemetry, not a loss).
+    if enc_out["extrinsics_cwt"] is not None and "extrinsics" in ctx:
+        with torch.no_grad():
+            pred_c = context_extrinsics[:, v_cxt - 1]
+            gt_c = ctx["extrinsics"][:, v_cxt - 1]
+            metrics["pose/context_rot_deg"] = torch.mean(
+                se3.rotation_angle_deg(pred_c[:, :3, :3], gt_c[:, :3, :3]))
+            metrics["pose/context_transl_deg"] = torch.mean(
+                se3.translation_angle_deg(pred_c[:, :3, 3], gt_c[:, :3, 3]))
 
     metrics["loss/total"] = total
     metrics["train/psnr"] = torch.mean(psnr(pred_flat, gt_flat))
@@ -207,14 +234,15 @@ def make_train_step(
 ):
     """Build `step(state, batch) -> (state, metrics)`.
 
+    `distiller`: the frozen teacher of `compute_losses`; the loop builds
+    a step with it for the first `distill_max_steps` steps and one
+    without it after.
     `microbatch`: gradient accumulation over equal chunks of this size;
     the gradient is the mean of the chunks' gradients (equal chunks: the
     full batch's), float metrics are averaged and integer counters summed,
     and ONE optimizer update is applied.  Metrics come back as Python
     numbers, with "grad/max" and "grad/skipped_steps" from the optimizer.
     """
-    if distiller is not None:
-        raise NotImplementedError("pointmap distillation is not ported yet")
     if mesh is not None:
         raise NotImplementedError("multi-device training is not ported yet")
     disable_tf32()
@@ -233,7 +261,7 @@ def make_train_step(
         for mb in _split(batch, n):
             loss, metrics = compute_losses(
                 state.encoder, mb, state.step, image_shape, decoder_cfg,
-                loss_cfg, lpips, training_context)
+                loss_cfg, lpips, training_context, distiller)
             (loss / n).backward()
             for k, m in metrics.items():
                 sums[k] = sums.get(k, 0) + m

@@ -32,6 +32,7 @@ from spfsplatv2_tpu_torch.utils.from_flax import (
     checkpoint_from_flax,
     flax_to_state_dict,
 )
+from spfsplatv2_tpu_torch.utils.reference_checkpoint import reference_state_dict
 
 sys.path.insert(0, str(Path(__file__).parent))
 from torch_port_common import (  # noqa: E402
@@ -39,6 +40,7 @@ from torch_port_common import (  # noqa: E402
     TINY_HEADS,
     jax_tiny_encoder,
     random_flax_params,
+    tiny_teacher_loader,
     torch_tiny_encoder,
 )
 
@@ -172,14 +174,42 @@ def test_multi_dataset_training_concatenates(tmp_path, monkeypatch):
     assert sizes == [4, 4] and result["state"].step == 2
 
 
-def test_unported_options_raise(train_root, tmp_path):
+def test_unported_options_raise(train_root, tmp_path, monkeypatch):
+    """Both options that were once not ported (ROADMAP.md items 17 and
+    18) are: `checkpointing.pretrained_weights` loads a random
+    MASt3R-keyed file into the encoder (what it lacks keeps its seeded
+    init), and `train.distiller=mast3r` trains with the teacher (the tiny
+    one) for the steps up to `distill_max_steps`."""
+    from spfsplatv2_tpu_torch.utils.ckpt_convert import (
+        convert_spfsplat_checkpoint,
+    )
+
     cfg = _tiny_cfg(train_root, tmp_path, 1.0)
-    for ov, item in (("checkpointing.pretrained_weights=/x.pth", "18"),
-                     ("train.distiller=mast3r", "17")):
-        extra = [ov, "train.distill_max_steps=5"]
-        bad = load_config(None, extra, base=cfg)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            loop.run_training(bad, max_steps=1, device="cpu")
+    sd = reference_state_dict(
+        3, enc_depth=2, enc_dim=64, dec_depth=2, dec_dim=48,
+        layer_dims=TINY_HEADS["dpt_layer_dims"],
+        feature_dim=TINY_HEADS["dpt_feature_dim"],
+        last_dim=TINY_HEADS["dpt_last_dim"])
+    weights = tmp_path / "mast3r.pth"
+    torch.save({"model": sd, "args": "the training arguments"}, weights)
+    tiny_teacher_loader(monkeypatch)
+    seeded = build_encoder(SPFSplatV2Config(
+        backbone=CrocoBackboneConfig(**TINY_BACKBONE), **TINY_HEADS),
+        seed=cfg.trainer.seed, device="cpu").state_dict()
+    for ov in (f"checkpointing.pretrained_weights={weights}",
+               "train.distiller=mast3r"):
+        run = load_config(None, [ov, "train.distill_max_steps=5"], base=cfg)
+        if "pretrained" in ov:
+            result = loop.run_training(run, max_steps=0, device="cpu")
+            own = result["encoder"].state_dict()
+            converted = convert_spfsplat_checkpoint(sd, 2, 2)
+            assert all(torch.equal(own[k], v) for k, v in converted.items())
+            kept = [k for k in own if k not in converted]
+            assert kept and all(torch.equal(own[k], seeded[k]) for k in kept)
+        else:
+            result = loop.run_training(run, max_steps=1, device="cpu")
+            assert np.isfinite(result["metrics"]["loss/distillation"])
+            assert result["state"].step == 1
 
 
 def _assert_states_equal(a, b):

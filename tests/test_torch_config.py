@@ -116,9 +116,9 @@ def test_sampler_switches_to_evaluation_at_test(tmp_path):
 @pytest.mark.parametrize("name,item", [("spfsplat", "17"),
                                        ("spfsplatv2l", "16")])
 def test_unported_encoders_raise(name, item):
-    """v1 (ROADMAP.md item 17) raises, naming its item.  The VGGT-1B
-    encoder (item 16) is ported: the registry builds it from overrides
-    (the tiny sizes of tests/test_torch_vggt.py)."""
+    """Both encoders that were once not ported (ROADMAP.md items 16 and
+    17) are: the registry builds each from overrides, at the tiny sizes
+    of tests/test_torch_vggt.py and tests/test_torch_v1.py."""
     if name == "spfsplatv2l":
         from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LEncoder
 
@@ -128,9 +128,21 @@ def test_unported_encoders_raise(name, item):
         assert encoder.aggregator.cfg.dinov2.embed_dim == 32
         assert len(encoder.aggregator.frame_blocks) == 2
         return
-    cfg = config.load_config(None, [f"encoder.name={name}"])
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        get_encoder(cfg.encoder, device="cpu")
+    from spfsplatv2_tpu_torch.models.encoder_spfsplat import SPFSplatEncoder
+
+    ov = [f"encoder.name={name}", "encoder.spfsplat.sh_degree=1",
+          "encoder.spfsplat.dpt_feature_dim=32",
+          "encoder.spfsplat.dpt_last_dim=16",
+          "encoder.spfsplat.dpt_layer_dims=[16,24,32,48]"]
+    ov += [f"encoder.spfsplat.backbone.{k}={v}"
+           for k, v in dict(enc_depth=2, enc_embed_dim=64, enc_num_heads=4,
+                            dec_depth=2, dec_embed_dim=48,
+                            dec_num_heads=4).items()]
+    encoder = get_encoder(config.load_config(None, ov).encoder, device="cpu")
+    assert isinstance(encoder, SPFSplatEncoder)
+    assert len(encoder.backbone.enc_blocks) == 2
+    assert len(encoder.backbone.dec_blocks2) == 2
+    assert encoder.pose_head2.mlp1.in_features == 64 + 48
 
 
 def test_unknown_key_raises():

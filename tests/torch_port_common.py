@@ -414,3 +414,28 @@ def cli_checkpoints(params, tmp_path):
     port.mkdir(parents=True)
     torch.save({"encoder": flax_to_state_dict(params)}, port / "state.pt")
     return tmp_path / "jax_ckpt" / "step_0", port
+
+
+# ---- reference checkpoints and the tiny DUSt3R teacher -------------------
+
+# The tiny sizes of TINY_BACKBONE, as the teacher's masked backbone.
+TINY_TEACHER_BACKBONE = dict(TINY_BACKBONE, intrinsics_token=False,
+                             pose_token=False)
+
+
+def tiny_teacher_config():
+    from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
+    from spfsplatv2_tpu_torch.models.distiller import DistillerConfig
+
+    return DistillerConfig(backbone=CrocoBackboneConfig(**TINY_TEACHER_BACKBONE))
+
+
+def tiny_teacher_loader(monkeypatch):
+    """Route `training/loop.py:load_distiller_params` to the tiny teacher
+    (its default is the full-width DUSt3R)."""
+    from spfsplatv2_tpu_torch.training import loop
+
+    real = loop.load_distiller_params
+    monkeypatch.setattr(loop, "load_distiller_params",
+                        lambda path, seed, device: real(
+                            path, seed, device, tiny_teacher_config()))
