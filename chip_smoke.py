@@ -166,7 +166,40 @@ Phases, each printing JSON lines:
      14's chunks from a seeded random MASt3R-keyed state dict
      (`checkpointing.pretrained_weights`), one validation, the final
      checkpoint, then mode=test from it ("v1_cli"); then `build/cli/` is
-     deleted.
+     deleted;
+ 26. the 10-view VGGT preset (experiments/spfsplatv2-l/re10k_10view.yaml)
+     at full width: one request of 10 context views and a target at
+     224^2 and one train step at its b = 2 with its context-view dropout
+     and the guard's microbatch, launch counts read around each
+     ("vggt_10view"), and `utils/drawing.py:draw_cameras` of that
+     request's 11 predicted poses on the card against the CPU;
+ 27. "utils": a fresh seeded flagship (bf16) serves one 256^2 request
+     inside `utils/profiling.py:trace` (the Chrome trace's bytes and
+     device events), and `utils/logger.py:LocalLogger` writes a record
+     and the drawn cameras' PNG;
+ 28. "tile_shard_1024": that encoder's pass on a 1024^2 request (48 K5
+     forward launches) gives 2 x 1024^2 Gaussians; their render and its
+     backward here, then `parallel/raster_shard.py:render_tile_sharded`
+     by two gloo ranks sharing the card (torch.multiprocessing.spawn),
+     each a 512-row band (K1 and K3 in each, K2 in each backward): the
+     gathered image against the single render within
+     tests/test_tile_shard.py's bounds, the summed Gaussian gradients
+     against the single render's, the ranks' gradients bit-identical;
+ 29. "ddp_2rank": the b = 16 flagship step (the re10k recipe, seeded
+     LPIPS) here, then by two gloo ranks of b = 8 on the card through
+     `make_train_step(mesh=make_mesh(n_data=2))`: the loss and the
+     all-reduced gradient against this process's, the replicas bit for
+     bit, K1-K3 launches a rank, the all-reduce audit (count, bytes
+     against the trainable float32 bytes) and, on a second profiled
+     step, whether a bucket's all-reduce started before the backward
+     ended (recorded, not gated);
+ 30. "cli_ddp": `python -m torch.distributed.run --standalone
+     --nproc_per_node=2 -m spfsplatv2_tpu_torch.main` on the DL3DV
+     preset for 3 steps of b = 8 a rank (gloo: the ranks share the
+     card), on chunks that `data/convert_dl3dv.py` writes from seeded
+     nerfstudio-layout scenes of 270 x 480 frames; each rank's scenes
+     (disjoint), the step lines and the checkpoint's bytes; then
+     mode=test in this process from rank 0's checkpoint.
 Then the script's seconds so far (phase "done"), the kernels line (each
 kernel's times, bound, launches on its path and check results), the
 card's name and power limit, and the result.
@@ -242,12 +275,13 @@ K3_PROFILE_CALLS = 50
 # against the plain version on its real q, k, v.
 K5_PER_PASS, K5_CHECK_CALL = 48, 11
 # The command line (phases "cli_*"): the flagship preset with overrides
-# only.  Synthetic chunks at the preset's original_image_shape: 16 train
-# scenes (one batch of 16 without a scene twice), 26 frames each (the
-# preset's curriculum starts at a 25-frame context gap), one val scene
-# and two test scenes read through an evaluation index.
+# only.  Synthetic chunks at the preset's original_image_shape: 8 train
+# scenes (a batch of 16 holds each twice; writing the frames is most of
+# the phase's time), 26 frames each (the preset's curriculum starts at a
+# 25-frame context gap), one val scene and two test scenes read through
+# an evaluation index.
 CLI_PRESET = "experiments/spfsplatv2/re10k.yaml"
-CLI_SCENES = {"train": (16, 26), "val": (1, 26), "test": (2, 8)}
+CLI_SCENES = {"train": (8, 26), "val": (1, 26), "test": (2, 8)}
 CLI_INDEX = {"scene_000": {"context": [0, 7], "target": [3, 4], "overlap": 0.3},
              "scene_001": {"context": [1, 6], "target": [4], "overlap": 0.6}}
 CLI_STEPS, CLI_VAL_EVERY = 3, 2
@@ -296,6 +330,43 @@ PLY_FLOATS = 17  # xyz, normals, DC colour, opacity, 3 scales, 4 rotation
 # with DUSt3R's and MASt3R's key names and shapes, written to files.
 V1_PRESET = "experiments/spfsplat/re10k.yaml"
 V1_REQUESTS, V1_STEPS, V1_DISTILL_STEPS, V1_CLI_STEPS = 3, 2, 2, 2
+# The 10-view VGGT preset (phase "vggt_10view"): one request and one step
+# at its b = 2, 10 context views and one target, with its view dropout.
+VGGT_10VIEW_PRESET = "experiments/spfsplatv2-l/re10k_10view.yaml"
+# Data parallelism (phases "ddp_2rank", "tile_shard_1024", "cli_ddp"):
+# two gloo ranks on the one card.  "ddp_2rank": the flagship step at
+# TRAIN_BATCH in this process, then TRAIN_BATCH // 2 a rank; the loss
+# within DDP_LOSS_RTOL, the all-reduced gradient within DDP_GRAD_BAR of
+# max |g| (bf16 compute: the b = 8 and b = 16 passes may take GEMM kernels
+# that round differently, 2^-8 of each bf16 product, and the gradient sums
+# millions of them), the all-reduce's bytes within DDP_AUDIT_RATIO of the
+# trainable float32 bytes (the JAX package's audit bounds).
+DDP_WORLD, FLAGSHIP_HW = 2, 256
+DDP_LOSS_RTOL, DDP_GRAD_BAR = 1e-3, 5e-2
+DDP_AUDIT_RATIO = (0.9, 3.0)
+# "tile_shard_1024": the bands against the single render, with
+# tests/test_tile_shard.py's bounds (atol, share within it, hard bound);
+# each Gaussian field's summed gradient within TILE_GRAD_TOL of its max
+# in TILE_GRAD_SHARE of the Gaussians (a band's camera rounds a pixel
+# coordinate differently from the full camera's, and a Gaussian that
+# crosses the bands' border fills its tile slots in another order, which
+# can reorder its ties in the quantized depth key).  A band gradient
+# summed over the ranks would come back twice as large: no Gaussian
+# within the bar.
+TILE_BOUNDS = {"color": (1e-4, 0.999, 5e-3), "alpha": (1e-4, 0.999, 5e-3),
+               "depth": (1e-3, 0.999, 2e-2)}
+TILE_GRAD_TOL, TILE_GRAD_SHARE = 1e-4, 0.999
+# "cli_ddp": `torchrun` over two ranks on the DL3DV preset, on chunks that
+# the port's converter writes from seeded nerfstudio-layout scenes of
+# 270 x 480 frames: CLI_DDP_SCENES train scenes (more than the ranks'
+# CLI_DDP_STEPS batches of CLI_DDP_BATCH read in one epoch, so that the
+# ranks' scenes stay disjoint), CLI_DDP_FRAMES frames each (the preset's
+# bounded sampler starts at a 5-7 frame context gap).
+DL3DV_PRESET = "experiments/spfsplatv2/dl3dv.yaml"
+CLI_DDP_SCENES, CLI_DDP_FRAMES, CLI_DDP_STEPS, CLI_DDP_BATCH = 56, 12, 3, 8
+CLI_DDP_INDEX = {"test_000": {"context": [0, 6], "target": [3], "overlap": 0.4},
+                 "test_001": {"context": [2, 8], "target": [4, 5],
+                              "overlap": 0.5}}
 
 
 def emit(obj: dict) -> None:
@@ -2190,6 +2261,719 @@ def cli_phases(torch, repo: Path, dev) -> dict:
             "cli_test": test_counts, "cli_eval_pose": pose_counts}
 
 
+GAUSSIAN_FIELDS = ("means", "covariances", "harmonics", "opacities")
+
+
+def seeded_batch(torch, dev, seed: int, b: int, size: int,
+                 ctx_offsets=(0.0, 0.2), tgt_offsets=(0.1,)) -> dict:
+    """A train batch of `b` seeded scenes at size^2: per side, cameras at
+    these x offsets (jittered), random images, near 0.1, far 100."""
+    r = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], device=dev)
+
+    def side(offsets):
+        v = len(offsets)
+        c2w = torch.eye(4, device=dev).repeat(b, v, 1, 1)
+        c2w[..., 0, 3] = torch.tensor(offsets, device=dev)
+        c2w[..., :3, 3] += 0.02 * torch.randn(b, v, 3, generator=r, device=dev)
+        return {"image": torch.rand(b, v, size, size, 3, generator=r,
+                                    device=dev),
+                "intrinsics": k.expand(b, v, 3, 3).clone(), "extrinsics": c2w,
+                "near": torch.full((b, v), 0.1, device=dev),
+                "far": torch.full((b, v), 100.0, device=dev)}
+
+    return {"context": side(list(ctx_offsets)),
+            "target": side(list(tgt_offsets))}
+
+
+def seeded_request(torch, dev, seed: int, size: int, ctx_offsets=(0.0, 0.2),
+                   tgt_offset: float = 0.1) -> dict:
+    """One seeded request at size^2: context views at these x offsets and
+    one target, random images, near 1, far 100."""
+    r = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]],
+                     device=dev).expand(1, 3, 3)
+
+    def view(offset):
+        c2w = torch.eye(4, device=dev)
+        c2w[0, 3] = offset
+        return {"image": torch.rand(1, size, size, 3, generator=r, device=dev),
+                "intrinsics": k.clone(), "extrinsics": c2w[None],
+                "near": torch.ones(1, device=dev),
+                "far": torch.full((1,), 100.0, device=dev)}
+
+    views = [view(o) for o in ctx_offsets]
+    tgt = view(tgt_offset)
+    ctx = {key: torch.cat([v[key] for v in views]) for key in views[0]}
+    ctx["overlap"] = 0.5
+    return {"scene": f"request_{seed}", "context": ctx, "target": tgt}
+
+
+def capture_grads(torch, optimizer) -> list:
+    """Wrap `optimizer.step` to keep, at each call, the gradient it is
+    handed before its clip: every trainable parameter's, flattened in the
+    optimizer's order, on the host."""
+    seen = []
+    real = optimizer.step
+
+    def step():
+        seen.append(torch.cat([p.grad.reshape(-1) for p in optimizer.params])
+                    .cpu())
+        return real()
+
+    optimizer.step = step
+    return seen
+
+
+def join_gloo(torch, rank: int, world: int, store: str):
+    """This process as rank `rank` of a gloo group over a file store, its
+    tensors on the one card; returns torch.distributed."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    return dist
+
+
+def same_on_every_rank(torch, dist, flat) -> bool:
+    """Whether rank 1's `flat` equals this rank's bit for bit (rank 1's
+    copy is broadcast; on rank 1 itself, trivially true)."""
+    other = flat.clone() if dist.get_rank() == 1 else torch.empty_like(flat)
+    dist.broadcast(other, src=1)
+    return bool(torch.equal(flat, other))
+
+
+def ddp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of "ddp_2rank" (started by torch.multiprocessing.spawn):
+    the full-width flagship at its seeded init and the re10k recipe,
+    `make_train_step(mesh=make_mesh(n_data=world))` on this rank's part
+    of the parent's b = TRAIN_BATCH batch.  Writes its numbers to
+    `rank<r>.json`; rank 0 also writes its all-reduced gradient (before
+    the clip) and its parameters after the update."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models.encoder import (
+        SPFSplatV2Config,
+        build_encoder,
+    )
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.parallel import make_mesh, shard_batch
+    from spfsplatv2_tpu_torch.parallel.mesh import audit_overlap
+    from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
+    from spfsplatv2_tpu_torch.training.step import (
+        LossConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    dist = join_gloo(torch, rank, world, store)
+    dev = torch.device("cuda", 0)
+    out = Path(out_dir)
+    try:
+        encoder = build_encoder(SPFSplatV2Config(), seed=SEED, device=dev)
+        optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
+        grads = capture_grads(torch, optimizer)
+        state = init_train_state(encoder, optimizer)
+        mesh = make_mesh(n_data=world)
+        step = make_train_step(encoder, optimizer, (FLAGSHIP_HW, FLAGSHIP_HW),
+                               lpips=build_lpips(seed=SEED, device=dev),
+                               loss_cfg=LossConfig(),
+                               microbatch=TRAIN_BATCH // world, mesh=mesh)
+        batches = [shard_batch(seeded_batch(torch, dev, seed, TRAIN_BATCH,
+                                            FLAGSHIP_HW), mesh)
+                   for seed in (2100, 2101)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batches[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(cuda_lib.launch_counts)
+        audit = json.loads(json.dumps(step.audit.counts))
+        peak = torch.cuda.max_memory_allocated(dev)
+        flat = torch.cat([p.detach().reshape(-1) for p in optimizer.params])
+        identical = same_on_every_rank(torch, dist, flat)
+        if rank == 0:
+            torch.save(grads[0], out / "grad.pt")
+            torch.save(flat.cpu(), out / "params.pt")
+        del flat
+        # A second step under the profiler (host events): did a bucket's
+        # all-reduce start before the backward's last autograd node ended?
+        # (DDP sizes its buckets after the first step.)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(state, batches[1])
+            torch.cuda.synchronize()
+        overlap = audit_overlap(prof.events())
+        audit2 = json.loads(json.dumps(step.audit.counts))
+        result = {"rank": rank, "loss": metrics["loss/total"],
+                  "metrics": metrics, "step_ms": ms, "launches": counts,
+                  "all_reduce": audit["all-reduce"],
+                  "all_reduce_step2": audit2["all-reduce"],
+                  "trainable_f32_bytes": sum(p.numel() * 4
+                                             for p in optimizer.params),
+                  "peak_bytes": peak, "replicas_bit_identical": identical,
+                  "overlap": overlap}
+        (out / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def tile_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of "tile_shard_1024": `render_tile_sharded` of the parent's
+    1024^2 Gaussians on a (1, world) mesh, rows [rank * 1024 / world, ...),
+    then the backward of the parent's weighted sum of the outputs.  Rank
+    0 writes the gathered image and the Gaussians' summed gradients."""
+    import torch
+
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.parallel import make_mesh
+    from spfsplatv2_tpu_torch.parallel.raster_shard import render_tile_sharded
+
+    dist = join_gloo(torch, rank, world, store)
+    dev = torch.device("cuda", 0)
+    out = Path(out_dir)
+    try:
+        data = torch.load(out / "tile_in.pt", map_location=dev,
+                          weights_only=False)
+        mesh = make_mesh(n_data=1, n_tile=world)
+        leaves = [data[k].clone().requires_grad_(True) for k in GAUSSIAN_FIELDS]
+        cuda_lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = render_tile_sharded(
+            mesh, data["extrinsics"], data["intrinsics"], data["near"],
+            data["far"], data["image_shape"], data["background"], *leaves,
+            cfg=data["cfg"])
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_counts = dict(cuda_lib.launch_counts)
+        sum((o * w).sum() for o, w in zip((res.color, res.depth, res.alpha),
+                                          data["weights"])).backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(cuda_lib.launch_counts)
+        flat = torch.cat([t.grad.reshape(-1) for t in leaves])
+        identical = same_on_every_rank(torch, dist, flat)
+        if rank == 0:
+            torch.save({"color": res.color.detach().cpu(),
+                        "depth": res.depth.detach().cpu(),
+                        "alpha": res.alpha.detach().cpu(),
+                        "grads": [t.grad.cpu() for t in leaves]},
+                       out / "tile_out.pt")
+        (out / f"rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "forward_ms": fwd_ms, "forward_backward_ms": ms,
+            "forward_launches": fwd_counts, "launches": counts,
+            "grads_bit_identical_across_ranks": identical,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, out: Path) -> list:
+    """`fn(rank, DDP_WORLD, store, out)` in DDP_WORLD spawned processes,
+    joined (a child's exception is raised here); -> their results,
+    `<out>/rank<r>.json`."""
+    import torch.multiprocessing as mp
+
+    store = out / "store"
+    store.unlink(missing_ok=True)
+    mp.spawn(fn, args=(DDP_WORLD, str(store), str(out)), nprocs=DDP_WORLD)
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(DDP_WORLD)]
+
+
+def images_close(actual, desired, atol: float, share: float,
+                 hard: float) -> dict:
+    """tests/test_rasterizer.py's image bound: `share` of the pixels
+    within `atol` and every pixel within `hard`."""
+    diff = (actual.float() - desired.float()).abs()
+    within = float((diff <= atol).float().mean())
+    return {"max_abs_err": float(diff.max()), "share_within": within,
+            "ok": float(diff.max()) <= hard and within >= share}
+
+
+def vggt_10view_phase(torch, repo: Path, dev) -> dict:
+    """Phase "vggt_10view": the 10-view VGGT preset at full width, one
+    request (10 context views and a target at 224^2) through
+    `evaluate_example` and one train step at the preset's b = 2 with its
+    context-view dropout, launch counts read around each; and
+    `utils/drawing.py:draw_cameras` of the request's 11 predicted poses
+    on the card against the same call on the CPU."""
+    import numpy as np
+
+    from spfsplatv2_tpu_torch.config import load_config
+    from spfsplatv2_tpu_torch.evaluation.evaluator import (
+        EvalConfig,
+        evaluate_example,
+    )
+    from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models import get_encoder
+    from spfsplatv2_tpu_torch.training.loop import random_drop_views
+    from spfsplatv2_tpu_torch.training.optim import Optimizer
+    from spfsplatv2_tpu_torch.training.step import init_train_state
+    from spfsplatv2_tpu_torch.utils.drawing import draw_cameras
+
+    cfg = load_config([repo / VGGT_10VIEW_PRESET],
+                      ["checkpointing.pretrained_weights=null"])
+    hw = tuple(cfg.image_shape)
+    n_ctx = cfg.view_sampler.num_context_views
+    offsets = [0.2 * i / (n_ctx - 1) for i in range(n_ctx)]
+    t0 = time.perf_counter()
+    encoder = get_encoder(cfg.encoder, seed=SEED, device=dev)
+    place_vggt_scene(torch, encoder)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    if n_params != VGGT_PARAMS:
+        fail(f"the 10-view VGGT encoder has {n_params} parameters")
+    init_s = time.perf_counter() - t0
+    dec_cfg, eval_cfg = cfg.decoder, EvalConfig()
+    evaluate_example(encoder, seeded_request(torch, dev, 2999, hw[0], offsets),
+                     hw, dec_cfg, eval_cfg, device=dev)
+    req = seeded_request(torch, dev, 3000, hw[0], offsets)
+    (res,), serve_counts = serve_requests(torch, dev, encoder, [req], hw,
+                                          dec_cfg, eval_cfg)
+    want = {k: 0 for k in serve_counts}
+    want.update(composite_forward=1, cumsum_1d=2)
+    vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"]]
+    if serve_counts != want or not bool(torch.isfinite(
+            res["rendered"]).all()) or not all(np.isfinite(vals)):
+        fail(f"vggt_10view request: launches {serve_counts}, metrics {vals}")
+
+    # draw_cameras on the card and on the CPU, on the predicted poses.
+    c, t = req["context"], req["target"]
+    with torch.no_grad():
+        out = encoder(c["image"][None], c["intrinsics"][None],
+                      t["image"][None], t["intrinsics"][None])
+    poses = out["extrinsics_cwt"][0]
+    intr = torch.cat([c["intrinsics"], t["intrinsics"]])
+    colors = torch.linspace(0.2, 1.0, poses.shape[0] * 3,
+                            device=dev).reshape(-1, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drawn = draw_cameras(256, poses, intr, colors)
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3
+    drawn_cpu = draw_cameras(256, poses.cpu(), intr.cpu(), colors.cpu())
+    draw = {"views": list(drawn.shape), "device": str(drawn.device),
+            "card_ms": draw_ms,
+            "max_abs_err_vs_cpu": float((drawn.cpu() - drawn_cpu).abs().max()),
+            "lit_share": float((drawn > 0).float().mean())}
+    if draw["max_abs_err_vs_cpu"] > 1e-4 or draw["lit_share"] == 0:
+        fail(f"draw_cameras on the card: {draw}")
+    del out
+    torch.cuda.empty_cache()
+
+    # One train step at b = 2 with the preset's context-view dropout.
+    batch = seeded_batch(torch, dev, 3100, cfg.trainer.batch_size, hw[0],
+                         offsets)
+    batch = random_drop_views(batch, np.random.default_rng(SEED), cfg.train)
+    batch["context_valid"] = torch.as_tensor(batch["context_valid"],
+                                             device=dev)
+    encoder.train()
+    state = init_train_state(encoder, Optimizer(cfg.optimizer,
+                                                encoder.named_parameters()))
+    run = train_steps(torch, dev, state, cfg, hw,
+                      build_lpips(seed=SEED, device=dev), [batch],
+                      "vggt_10view train")
+    emit({"phase": "vggt_10view", "preset": VGGT_10VIEW_PRESET,
+          "params": n_params, "init_s": init_s, "context_views": n_ctx,
+          "context_valid": batch["context_valid"].tolist(),
+          "serve_launches": serve_counts,
+          "encoder_ms": res["times"]["encoder"]["mean_s"] * 1e3,
+          "decoder_ms": res["times"]["decoder"]["mean_s"] * 1e3,
+          "request_peak_gb": res["peak_bytes"] / 1e9, "psnr": res["psnr"],
+          "train": train_summary(run),
+          "step_peak_gb": run["steps"][0]["peak_bytes"] / 1e9,
+          "draw_cameras": draw})
+    return {"serve": serve_counts, "train": run["launches"], "draw": draw,
+            "drawn": drawn[0].cpu(), "k2_check": run["k2_vs_plain"]}
+
+
+def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
+    """Phases "utils", "tile_shard_1024" and "ddp_2rank" on one seeded
+    full-width flagship (bf16): a traced 256^2 request and a logger
+    record; the 1024^2 request's Gaussians (the encoder through K5's
+    forward) rendered once here and by two gloo ranks in 512-row bands,
+    with the backward of both; the b = TRAIN_BATCH step here, then by
+    two gloo ranks of TRAIN_BATCH // 2.  Returns each path's launch
+    counts."""
+    import dataclasses
+
+    from spfsplatv2_tpu_torch.evaluation.evaluator import (
+        EvalConfig,
+        evaluate_example,
+    )
+    from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models.decoder import (
+        LONG_CONTEXT_DECODER,
+        DecoderConfig,
+    )
+    from spfsplatv2_tpu_torch.models.encoder import (
+        SPFSplatV2Config,
+        build_encoder,
+    )
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.ops.rasterizer import render
+    from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
+    from spfsplatv2_tpu_torch.training.step import (
+        LossConfig,
+        init_train_state,
+        make_train_step,
+    )
+    from spfsplatv2_tpu_torch.utils import logger, profiling
+
+    root = repo / "build" / "parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    encoder = build_encoder(SPFSplatV2Config(), seed=SEED, device=dev)
+    paths = {}
+
+    # ---- utils: a traced 256^2 request, a logger record -----------------
+    hw = (FLAGSHIP_HW, FLAGSHIP_HW)
+    req = seeded_request(torch, dev, 1050, hw[0])
+    evaluate_example(encoder, req, hw, DecoderConfig(), EvalConfig(),
+                     device=dev)
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(root / "profile") as prof:
+        res = evaluate_example(encoder, req, hw, DecoderConfig(), EvalConfig(),
+                               device=dev)
+    traced_s = time.perf_counter() - t0
+    paths["utils_traced_request"] = dict(cuda_lib.launch_counts)
+    want = {k: 0 for k in paths["utils_traced_request"]}
+    want.update(composite_forward=1, cumsum_1d=2)
+    trace_file = root / "profile" / "trace.json"
+    device_events = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                        for e in prof.events())
+    if paths["utils_traced_request"] != want or not trace_file.exists() \
+            or device_events == 0:
+        fail(f"utils: traced request launches {paths['utils_traced_request']}"
+             f", {device_events} device events")
+    log = logger.LocalLogger(root / "log")
+    log.log_scalars(0, {"psnr": res["psnr"][0], "ssim": res["ssim"][0]})
+    log.log_image(0, "cameras", drawn["drawn"])
+    log.close()
+    record = json.loads((root / "log" / "metrics.jsonl").read_text())
+    png = root / "log" / "images" / "cameras_00000000.png"
+    if record["psnr"] != res["psnr"][0] or not png.exists():
+        fail(f"utils: logger record {record}")
+    emit({"phase": "utils", "draw_cameras": drawn["draw"],
+          "trace_bytes": trace_file.stat().st_size,
+          "trace_device_events": device_events, "traced_request_s": traced_s,
+          "traced_launches": paths["utils_traced_request"],
+          "logger_record": record, "logger_png_bytes": png.stat().st_size})
+    del prof, res
+
+    # ---- tile_shard_1024: the single render ------------------------------
+    size = (HW_LONG, HW_LONG)
+    long_req = seeded_request(torch, dev, 1010, HW_LONG)
+    c, t = long_req["context"], long_req["target"]
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        out = encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
+                      t["intrinsics"][None])
+    paths["tile_shard_1024_encoder"] = dict(cuda_lib.launch_counts)
+    want = {k: 0 for k in paths["tile_shard_1024_encoder"]}
+    want.update(flash_forward=K5_PER_PASS)
+    if paths["tile_shard_1024_encoder"] != want:
+        fail(f"tile_shard_1024 encoder launches "
+             f"{paths['tile_shard_1024_encoder']}, expected {want}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    g0 = out["gaussians"].map(lambda a: a[0])
+    data = {"extrinsics": out["extrinsics_cwt"][0, 2:].contiguous(),
+            "intrinsics": t["intrinsics"], "near": t["near"], "far": t["far"],
+            "image_shape": size, "background": torch.zeros(1, 3, device=dev),
+            "cfg": dataclasses.replace(
+                LONG_CONTEXT_DECODER.rasterizer,
+                scale_invariant=LONG_CONTEXT_DECODER.make_scale_invariant),
+            "weights": [torch.randn(s, generator=gen, device=dev)
+                        for s in ((1, *size, 3), (1, *size), (1, *size))],
+            **{k: getattr(g0, k).contiguous() for k in GAUSSIAN_FIELDS}}
+    del out, g0
+    leaves = [data[k].clone().requires_grad_(True) for k in GAUSSIAN_FIELDS]
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = render(data["extrinsics"], data["intrinsics"], data["near"],
+                    data["far"], size, data["background"], *leaves,
+                    cfg=data["cfg"])
+    sum((o * w).sum() for o, w in zip((single.color, single.depth,
+                                       single.alpha), data["weights"])
+        ).backward()
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    paths["tile_shard_1024_single"] = dict(cuda_lib.launch_counts)
+    single_out = {k: getattr(single, k).detach().cpu()
+                  for k in ("color", "depth", "alpha")}
+    single_grads = [x.grad.cpu() for x in leaves]
+    tile_dir = root / "tile"
+    tile_dir.mkdir()
+    torch.save(data, tile_dir / "tile_in.pt")
+    n_gauss = data["means"].shape[0]
+    del leaves, single, data
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- ddp_2rank: the step in this process -----------------------------
+    encoder.train()
+    optimizer = Optimizer(OptimizerConfig(), encoder.named_parameters())
+    grads = capture_grads(torch, optimizer)
+    state = init_train_state(encoder, optimizer)
+    step = make_train_step(encoder, optimizer, hw, loss_cfg=LossConfig(),
+                           lpips=build_lpips(seed=SEED, device=dev),
+                           microbatch=TRAIN_BATCH)
+    cuda_lib.reset_launch_counts()
+    parent = run_train_step(torch, dev, state, step,
+                            seeded_batch(torch, dev, 2100, TRAIN_BATCH, hw[0]))
+    paths["ddp_one_process_step"] = dict(cuda_lib.launch_counts)
+    parent_grad = grads[0]
+    parent_params = torch.cat([p.detach().reshape(-1)
+                               for p in optimizer.params]).cpu()
+    n_params = sum(p.numel() for p in encoder.parameters())
+    del encoder, optimizer, state, step, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- ddp_2rank: two gloo ranks on the card ---------------------------
+    ddp_dir = root / "ddp"
+    ddp_dir.mkdir()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ddp_rank, ddp_dir)
+    ddp_s = time.perf_counter() - t0
+    grad0 = torch.load(ddp_dir / "grad.pt")
+    scale = float(parent_grad.abs().max())
+    grad_err = float((grad0 - parent_grad).abs().max())
+    grad_rel_norm = float(torch.linalg.vector_norm(grad0 - parent_grad)
+                          / torch.linalg.vector_norm(parent_grad))
+    param_err = float((torch.load(ddp_dir / "params.pt")
+                       - parent_params).abs().max())
+    del grad0, parent_grad, parent_params
+    per_rank = {k: 0 for k in ranks[0]["launches"]}
+    per_rank.update(composite_forward=TRAIN_BATCH // DDP_WORLD,
+                    composite_backward=TRAIN_BATCH // DDP_WORLD,
+                    cumsum_1d=2 * TRAIN_BATCH // DDP_WORLD)
+    loss_p = parent["metrics"]["loss/total"]
+    ratios = [r[key]["bytes"] / r["trainable_f32_bytes"] for r in ranks
+              for key in ("all_reduce", "all_reduce_step2")]
+    checks = {
+        "loss": all(abs(r["loss"] - loss_p) <= DDP_LOSS_RTOL * abs(loss_p)
+                    for r in ranks),
+        "grad": grad_err <= DDP_GRAD_BAR * scale,
+        "replicas": all(r["replicas_bit_identical"] for r in ranks),
+        "launches": all(r["launches"] == per_rank for r in ranks),
+        "metrics": ranks[0]["metrics"] == ranks[1]["metrics"],
+        "audit": all(DDP_AUDIT_RATIO[0] <= x <= DDP_AUDIT_RATIO[1]
+                     for x in ratios)}
+    emit({"phase": "ddp_2rank", "preset": CLI_PRESET, "params": n_params,
+          "batch": TRAIN_BATCH, "per_rank_batch": TRAIN_BATCH // DDP_WORLD,
+          "backend": "gloo", "checks": checks,
+          "loss_one_process": loss_p, "loss_ranks": [r["loss"] for r in ranks],
+          "loss_rtol": DDP_LOSS_RTOL, "grad_max_abs_err": grad_err,
+          "grad_max_abs": scale, "grad_err_share_of_max": grad_err / scale,
+          "grad_bar_share_of_max": DDP_GRAD_BAR,
+          "grad_rel_norm_err": grad_rel_norm,
+          "updated_params_max_abs_err": param_err,
+          "replicas_bit_identical": [r["replicas_bit_identical"]
+                                     for r in ranks],
+          "launches_a_rank": [r["launches"] for r in ranks],
+          "all_reduce": [r["all_reduce"] for r in ranks],
+          "all_reduce_step2": [r["all_reduce_step2"] for r in ranks],
+          "trainable_f32_bytes": ranks[0]["trainable_f32_bytes"],
+          "all_reduce_over_param_bytes": ratios,
+          "overlap_rank0": ranks[0]["overlap"],
+          "step_ms_one_process": parent["ms"],
+          "step_ms_ranks": [r["step_ms"] for r in ranks],
+          "peak_bytes_one_process": parent["peak_bytes"],
+          "peak_bytes_ranks": [r["peak_bytes"] for r in ranks],
+          "seconds": ddp_s,
+          "note": "two processes share one card; gloo copies through the "
+                  "host: not a multi-GPU number"})
+    if not all(checks.values()):
+        fail(f"ddp_2rank: {checks}")
+    for r in ranks:
+        paths[f"ddp_2rank_rank{r['rank']}"] = r["launches"]
+
+    # ---- tile_shard_1024: two gloo ranks, 512-row bands ------------------
+    t0 = time.perf_counter()
+    tranks = spawn_ranks(tile_rank, tile_dir)
+    tile_s = time.perf_counter() - t0
+    got = torch.load(tile_dir / "tile_out.pt")
+    image = {k: images_close(got[k], single_out[k], *TILE_BOUNDS[k])
+             for k in TILE_BOUNDS}
+    grad_check = {}
+    for name, g, want_g in zip(GAUSSIAN_FIELDS, got["grads"], single_grads):
+        g_scale = float(want_g.abs().max())
+        per_gauss = (g - want_g).abs().reshape(n_gauss, -1).amax(1)
+        grad_check[name] = {
+            "max_abs_err": float(per_gauss.max()), "max_abs": g_scale,
+            "share_within": float((per_gauss <= TILE_GRAD_TOL * g_scale)
+                                  .float().mean())}
+    fwd = {k: 0 for k in tranks[0]["launches"]}
+    fwd.update(composite_forward=1, cumsum_1d=2)
+    full = dict(fwd, composite_backward=1)
+    checks = {
+        "image": all(v["ok"] for v in image.values()),
+        "grads": all(v["share_within"] >= TILE_GRAD_SHARE
+                     for v in grad_check.values()),
+        "ranks_agree": all(r["grads_bit_identical_across_ranks"]
+                           for r in tranks),
+        "launches": all(r["forward_launches"] == fwd and r["launches"] == full
+                        for r in tranks)}
+    emit({"phase": "tile_shard_1024", "g": n_gauss, "image_shape": list(size),
+          "bands": DDP_WORLD, "band_rows": HW_LONG // DDP_WORLD,
+          "encoder_launches": paths["tile_shard_1024_encoder"],
+          "checks": checks, "vs_single": image, "grads_vs_single": grad_check,
+          "grad_tol_share_of_max": TILE_GRAD_TOL,
+          "grad_share_required": TILE_GRAD_SHARE,
+          "single_forward_backward_ms": single_ms,
+          "single_launches": paths["tile_shard_1024_single"],
+          "ranks": tranks, "seconds": tile_s,
+          "note": "two processes share one card; gloo copies through the "
+                  "host: not a multi-GPU number"})
+    if not all(checks.values()):
+        fail(f"tile_shard_1024: {checks}")
+    for r in tranks:
+        paths[f"tile_shard_1024_rank{r['rank']}"] = r["launches"]
+    shutil.rmtree(root)
+    return {"paths": paths, "tile_image": image, "tile_grads": grad_check,
+            "ddp_grad_err_share": grad_err / scale}
+
+
+def write_nerfstudio_scenes(root: Path, names: list, rng) -> None:
+    """Scenes in DL3DV's nerfstudio layout: `<name>/images/*.jpg` (270 x
+    480, smooth seeded colours) and `<name>/transforms.json` (OpenGL
+    camera-to-world, a dolly along x; intrinsics in pixels)."""
+    import numpy as np
+
+    from spfsplatv2_tpu_torch.data.chunk_io import encode_jpeg
+
+    gl = np.diag([1.0, -1.0, -1.0, 1.0])
+    for name in names:
+        (root / name / "images").mkdir(parents=True)
+        frames = []
+        for i in range(CLI_DDP_FRAMES):
+            low = rng.uniform(0, 1, (9, 16, 3))
+            image = np.repeat(np.repeat(low, 30, 0), 30, 1)
+            path = f"images/frame_{i:05d}.jpg"
+            (root / name / path).write_bytes(encode_jpeg(image))
+            c2w = np.eye(4)
+            c2w[0, 3] = 0.05 * i
+            c2w[:3, 3] += 0.01 * rng.standard_normal(3)
+            frames.append({"file_path": path,
+                           "transform_matrix": (c2w @ gl).tolist()})
+        (root / name / "transforms.json").write_text(json.dumps({
+            "w": 480, "h": 270, "fl_x": 400.0, "fl_y": 400.0, "cx": 240.0,
+            "cy": 135.0, "frames": frames}))
+
+
+def cli_ddp_phase(torch, repo: Path, dev) -> dict:
+    """Phase "cli_ddp": `python -m torch.distributed.run --standalone
+    --nproc_per_node=2 -m spfsplatv2_tpu_torch.main` on the DL3DV preset
+    (the port's rule takes gloo: two ranks share the one card) for
+    CLI_DDP_STEPS steps of CLI_DDP_BATCH a rank, on chunks that
+    `data/convert_dl3dv.py` writes from seeded nerfstudio-layout scenes;
+    then mode=test in this process from rank 0's checkpoint.  Returns
+    mode=test's launch counts (the ranks' counts stay in their
+    processes)."""
+    import ast
+    import re
+
+    import numpy as np
+
+    from spfsplatv2_tpu_torch import main as cli
+    from spfsplatv2_tpu_torch.data import convert_dl3dv
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+
+    root = repo / "build" / "cli_ddp"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    write_nerfstudio_scenes(root / "src_train", [
+        f"train_{i:03d}" for i in range(CLI_DDP_SCENES)], rng)
+    write_nerfstudio_scenes(root / "src_test", list(CLI_DDP_INDEX), rng)
+    chunks = root / "chunks"
+    train_index = convert_dl3dv.convert_dataset(root / "src_train", chunks,
+                                                "train", 1)
+    test_index = convert_dl3dv.convert_dataset(root / "src_test", chunks,
+                                               "test", 1)
+    index = root / "index.json"
+    index.write_text(json.dumps(CLI_DDP_INDEX))
+    data_s = time.perf_counter() - t0
+    if len(train_index) != CLI_DDP_SCENES or len(test_index) != len(
+            CLI_DDP_INDEX):
+        fail(f"cli_ddp: converted {len(train_index)} / {len(test_index)}")
+
+    out_dir, test_dir = root / "out", root / "test_out"
+    overrides = [f"dataset.roots=[{chunks}]",
+                 "checkpointing.pretrained_weights=null",
+                 f"trainer.batch_size={CLI_DDP_BATCH}",
+                 f"trainer.max_steps={CLI_DDP_STEPS}",
+                 "trainer.val_check_interval=0",
+                 "checkpointing.every_n_train_steps=0",
+                 "train.print_log_every_n_steps=1", f"output_dir={out_dir}",
+                 f"evaluation_sampler.index_path={index}",
+                 f"test.output_path={test_dir}", "test.save_image=false"]
+    config = ["--config", str(repo / DL3DV_PRESET)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={DDP_WORLD}", "-m", "spfsplatv2_tpu_torch.main",
+           *config, *overrides]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                          timeout=900)
+    train_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli_ddp: torchrun rc {proc.returncode}\n{proc.stdout[-4000:]}"
+             f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    scenes = {r: [] for r in range(DDP_WORLD)}
+    for line in lines:
+        m = re.match(r"\[rank (\d+)/\d+\] step \d+ scenes (\[.*\])$", line)
+        if m:
+            scenes[int(m.group(1))].extend(ast.literal_eval(m.group(2)))
+    step_lines = [line for line in lines if line.startswith("step ")]
+    ckpt = out_dir / "checkpoints" / "step_-1"
+    sets = [set(v) for v in scenes.values()]
+    checks = {
+        "scenes_a_rank": all(len(v) == CLI_DDP_STEPS * CLI_DDP_BATCH
+                             for v in scenes.values()),
+        "disjoint": not sets[0] & sets[1],
+        "step_lines": len(step_lines) == CLI_DDP_STEPS,
+        "checkpoint": (ckpt / "state.pt").exists()}
+    if not all(checks.values()):
+        fail(f"cli_ddp: {checks}\n{proc.stdout[-4000:]}")
+    ckpt_bytes = (ckpt / "state.pt").stat().st_size
+
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = run_cli(cli, [*config, *overrides, "mode=test",
+                       f"checkpointing.load={ckpt}"])
+    test_s = time.perf_counter() - t0
+    test_counts = dict(cuda_lib.launch_counts)
+    targets = sum(len(e["target"]) for e in CLI_DDP_INDEX.values())
+    want = {k: 0 for k in test_counts}
+    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    scores = test_dir / "scores_all_avg.json"
+    if rc != 0 or test_counts != want or not scores.exists():
+        fail(f"cli_ddp test: rc {rc}, launches {test_counts} (expected "
+             f"{want})")
+    emit({"phase": "cli_ddp", "preset": DL3DV_PRESET, "overrides": overrides,
+          "backend": "gloo", "ranks": DDP_WORLD, "data_s": data_s,
+          "train_scenes": len(train_index),
+          "train_chunks": len(set(train_index.values())),
+          "torchrun_rc": proc.returncode, "torchrun_s": train_s,
+          "checks": checks, "scenes_by_rank": scenes,
+          "step_lines": step_lines, "checkpoint_bytes": ckpt_bytes,
+          "test_rc": rc, "test_s": test_s, "test_launches": test_counts,
+          "averages": json.loads(scores.read_text()),
+          "note": "two processes share one card over gloo: the NCCL "
+                  "choice is not exercised here"})
+    shutil.rmtree(root)
+    return {"cli_ddp_test": test_counts}
+
+
 def main() -> int:
     import torch
 
@@ -2430,22 +3214,7 @@ def main() -> int:
           "params": n_params, "compute_dtype": cfg.backbone.compute_dtype})
 
     def request(i: int, size: int = hw) -> dict:
-        r = torch.Generator(device=dev).manual_seed(1000 + i)
-        k = k_norm.expand(1, 3, 3)
-
-        def view(offset):
-            c2w = torch.eye(4, device=dev)
-            c2w[0, 3] = offset
-            return {"image": torch.rand(1, size, size, 3, generator=r,
-                                        device=dev),
-                    "intrinsics": k.clone(), "extrinsics": c2w[None],
-                    "near": torch.ones(1, device=dev),
-                    "far": torch.full((1,), 100.0, device=dev)}
-
-        ctx0, ctx1, tgt = view(0.0), view(0.2), view(0.1)
-        ctx = {key: torch.cat([ctx0[key], ctx1[key]]) for key in ctx0}
-        ctx["overlap"] = 0.5
-        return {"scene": f"request_{i}", "context": ctx, "target": tgt}
+        return seeded_request(torch, dev, 1000 + i, size)
 
     dec_cfg, eval_cfg = DecoderConfig(), EvalConfig()
     warm = evaluate_example(encoder, request(-1), (hw, hw), dec_cfg, eval_cfg,
@@ -2792,21 +3561,7 @@ def main() -> int:
                                  microbatch=TRAIN_MICROBATCH)
 
     def train_batch(i: int, b: int = TRAIN_BATCH, size: int = hw) -> dict:
-        r = torch.Generator(device=dev).manual_seed(2000 + i)
-
-        def side(v, offsets):
-            c2w = torch.eye(4, device=dev).repeat(b, v, 1, 1)
-            c2w[..., 0, 3] = torch.tensor(offsets, device=dev)
-            c2w[..., :3, 3] += 0.02 * torch.randn(b, v, 3, generator=r,
-                                                  device=dev)
-            return {"image": torch.rand(b, v, size, size, 3, generator=r,
-                                        device=dev),
-                    "intrinsics": k_norm.expand(b, v, 3, 3).clone(),
-                    "extrinsics": c2w,
-                    "near": torch.full((b, v), 0.1, device=dev),
-                    "far": torch.full((b, v), 100.0, device=dev)}
-
-        return {"context": side(2, [0.0, 0.2]), "target": side(1, [0.1])}
+        return seeded_batch(torch, dev, 2000 + i, b, size)
 
     def run_step(batch, step_fn=train_step) -> dict:
         return run_train_step(torch, dev, state, step_fn, batch)
@@ -2931,6 +3686,17 @@ def main() -> int:
     v1_cli_counts = v1_cli_phase(torch, repo, dev)
     shutil.rmtree(repo / "build" / "cli")
     shutil.rmtree(repo / "build" / "v1", ignore_errors=True)
+
+    # ---- 26-30. the 10-view VGGT preset, utilities, data parallelism ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    v10 = vggt_10view_phase(torch, repo, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    par = parallel_phases(torch, repo, dev, v10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_ddp_counts = cli_ddp_phase(torch, repo, dev)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
 
     # ---- kernels line, card, result -----------------------------------
@@ -2952,7 +3718,10 @@ def main() -> int:
              "vggt_train_2_steps": vggt["train"], **vggt_cli_counts,
              "v1_serve_3_requests": v1["serve"],
              "v1_train_2_steps": v1["train"],
-             "v1_distill_2_steps": v1["distill"], **v1_cli_counts}
+             "v1_distill_2_steps": v1["distill"], **v1_cli_counts,
+             "vggt_10view_request": v10["serve"],
+             "vggt_10view_train_step": v10["train"], **par["paths"],
+             **cli_ddp_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}
@@ -3029,7 +3798,10 @@ def main() -> int:
                        for key, c in vggt["render_check"].items()},
                    "render_v1_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
-                       for key, c in v1["render_check"].items()}}},
+                       for key, c in v1["render_check"].items()},
+                   "tile_shard_1024_bands_vs_single_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in par["tile_image"].items()}}},
         {"name": "composite_backward", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/composite_backward.cu",
          "replaces": "spfsplatv2_tpu/ops/raster_pallas.py:295",
@@ -3043,7 +3815,13 @@ def main() -> int:
                    "train_1024_f32_step_vs_plain": f32["k2_check"],
                    "vggt_train_step_vs_plain": vggt["k2_check"],
                    "v1_train_step_vs_plain": v1["k2_check"],
-                   "v1_distill_step_vs_plain": v1["k2_check_distill"]}},
+                   "v1_distill_step_vs_plain": v1["k2_check_distill"],
+                   "vggt_10view_step_vs_plain": v10["k2_check"],
+                   "tile_shard_1024_summed_grads_vs_single": {
+                       key: c["max_abs_err"] / c["max_abs"]
+                       for key, c in par["tile_grads"].items()},
+                   "ddp_2rank_grad_vs_one_process_share_of_max":
+                       par["ddp_grad_err_share"]}},
         {"name": "cumsum_1d", "route": "cuda",
          "source": "spfsplatv2_tpu_torch/csrc/prefix_scan.cu",
          "replaces": "spfsplatv2_tpu/ops/segscan.py:108",

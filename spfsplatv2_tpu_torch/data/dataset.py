@@ -97,7 +97,13 @@ class ChunkedSceneDataset:
         )
         chunks = list(self.chunks)
         if self.stage in ("train", "val"):
-            rng.shuffle(chunks)
+            # The shards stride one chunk order, drawn from a generator
+            # they share, so that they are disjoint.  (The JAX package
+            # shuffles with each shard's own generator, so its shards
+            # overlap; one shard's stream is the same in both.)
+            order = rng if self.num_shards == 1 else np.random.default_rng(
+                (self.seed, epoch))
+            order.shuffle(chunks)
         # Per-host sharding: stride chunks across shards.
         chunks = chunks[self.shard_id:: self.num_shards]
 

@@ -11,12 +11,21 @@ Usage:
 `key=value` overrides come last (config.py).  Everything runs on the
 card; `--device cpu` runs the same path on the CPU with the kernels'
 plain versions (for tests, at tiny sizes).
+
+Data-parallel training over N processes:
+    torchrun --standalone --nproc_per_node=N -m spfsplatv2_tpu_torch.main \
+        --config experiments/spfsplatv2/re10k.yaml ...
+Each process takes card LOCAL_RANK (modulo the cards there are) and
+joins the group `torchrun` describes: over NCCL when every local rank
+has a card of its own, over gloo when ranks share a card or with
+`--device cpu`.  Each rank trains on its own `trainer.batch_size`.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -34,6 +43,29 @@ def _load_encoder(cfg, device):
     return encoder.eval()
 
 
+def init_distributed(device: str) -> tuple[str, bool]:
+    """Join the process group that `torchrun`'s environment describes
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR/PORT):
+    (this rank's device, whether this call created the group).  Without
+    that environment, or in a group already joined, nothing happens."""
+    import torch
+    import torch.distributed as dist
+
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return device, False
+
+    backend = "gloo"
+    if device != "cpu":
+        cards = torch.cuda.device_count()
+        local = int(os.environ["LOCAL_RANK"])
+        if int(os.environ.get("LOCAL_WORLD_SIZE", 1)) <= cards:
+            backend = "nccl"
+        device = f"cuda:{local % cards}"
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend)
+    return device, True
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", action="append", default=[])
@@ -44,8 +76,17 @@ def main(argv=None) -> int:
     from spfsplatv2_tpu_torch.config import load_config
 
     cfg = load_config(args.config, args.overrides)
-    device = args.device
+    device, joined = init_distributed(args.device)
+    try:
+        return _run(cfg, device)
+    finally:
+        if joined:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _run(cfg, device) -> int:
     if cfg.mode == "train":
         from spfsplatv2_tpu_torch.training.loop import (
             run_training,

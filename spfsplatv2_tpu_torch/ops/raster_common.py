@@ -54,8 +54,13 @@ def project_gaussians(
     image_shape: tuple[int, int],
     sh_degree: int | None = None,
     use_sh: bool = True,
+    ewa_reference_shape: tuple[int, int] | None = None,
 ) -> ProjectedGaussians:
-    """Project one camera's view of a set of world-space Gaussians."""
+    """Project one camera's view of a set of world-space Gaussians.
+
+    `ewa_reference_shape`: the image whose frustum bounds the EWA clamp; a
+    band of rows of a larger image (`parallel/raster_shard.py`) passes
+    the full image's shape so that its conics match the full render's."""
     h, w = image_shape
     dtype = means.dtype
 
@@ -75,8 +80,9 @@ def project_gaussians(
     py = fy * t_cam[..., 1] / tz_safe + cy
     xy = torch.stack([px, py], dim=-1)
 
-    tan_fx = 0.5 * w / fx
-    tan_fy = 0.5 * h / fy
+    h_ref, w_ref = ewa_reference_shape or (h, w)
+    tan_fx = 0.5 * w_ref / fx
+    tan_fy = 0.5 * h_ref / fy
     lim_x = 1.3 * tan_fx
     lim_y = 1.3 * tan_fy
     txz = torch.clamp(t_cam[..., 0] / tz_safe, -lim_x, lim_x) * tz_safe

@@ -93,14 +93,22 @@ def bin_gaussians_prefix(
     base_tiles_per_gaussian: int | None = None,
     big_pool_factor: float = 0.125,
     depth_key: str = "rank",
+    key_shape: tuple[int, int] | None = None,
 ) -> PrefixBins:
     """Prefix-layout binning (non-differentiable); two-tier when
-    `base_tiles_per_gaussian` < `max_tiles_per_gaussian`."""
+    `base_tiles_per_gaussian` < `max_tiles_per_gaussian`.
+
+    `key_shape`: the image whose tile count sets the key's split between
+    tile id and depth bits (default `image_shape`).  A band of a larger
+    image passes the larger image's shape, so that the quantized depth
+    key keeps the same bits, and near ties the same order, as there."""
     if max_tiles_per_gaussian < 1:
         raise ValueError(f"max_tiles_per_gaussian={max_tiles_per_gaussian}")
     h, w = image_shape
     tiles_y, tiles_x = _cdiv(h, TILE), _cdiv(w, TILE)
     n_tiles = tiles_y * tiles_x
+    kh, kw = key_shape or image_shape
+    key_tiles = max(n_tiles, _cdiv(kh, TILE) * _cdiv(kw, TILE))
 
     xy = proj.xy.detach()
     depth = proj.depth.detach()
@@ -116,12 +124,12 @@ def bin_gaussians_prefix(
     live_g = (radius > 0) & torch.isfinite(depth)
 
     depth_bits = depth.to(torch.float32).contiguous().view(torch.int32)
-    tile_bits = (n_tiles + 1).bit_length()
+    tile_bits = (key_tiles + 1).bit_length()
     if depth_key == "quantized":
         row_bits = 31 - tile_bits
         rank = torch.clamp(depth_bits, min=0) >> (31 - row_bits)
     elif depth_key == "rank":
-        row_bits = rank_key_bits(g, n_tiles) - tile_bits
+        row_bits = rank_key_bits(g, key_tiles) - tile_bits
         order = torch.argsort(depth_bits, stable=True)
         rank = torch.argsort(order, stable=True).to(torch.int32)
     else:

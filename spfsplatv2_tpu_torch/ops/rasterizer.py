@@ -72,10 +72,12 @@ def entry_budget(cfg: RasterizerConfig, g: int) -> int:
 
 
 def _render_one(means, covariances, harmonics, opacities, c2w, intrinsics,
-                background, image_shape, sh_degree, cfg: RasterizerConfig):
+                background, image_shape, sh_degree, cfg: RasterizerConfig,
+                ewa_reference_shape=None):
     proj = project_gaussians(
         means, covariances, harmonics, opacities, c2w, intrinsics,
         image_shape, sh_degree=sh_degree, use_sh=cfg.use_sh,
+        ewa_reference_shape=ewa_reference_shape,
     )
     dropped = torch.zeros((), dtype=torch.int32, device=means.device)
     if cfg.backend == "reference":
@@ -96,6 +98,7 @@ def _render_one(means, covariances, harmonics, opacities, c2w, intrinsics,
             base_tiles_per_gaussian=cfg.base_tiles_per_gaussian,
             big_pool_factor=cfg.big_pool_factor,
             depth_key=cfg.depth_key,
+            key_shape=ewa_reference_shape,
         )
         dropped = bins.n_overflow
         color, depth, alpha = composite_prefix(
@@ -119,6 +122,7 @@ def render(
     opacities: torch.Tensor,    # (cam, g) or (g,)
     sh_degree: int | None = None,
     cfg: RasterizerConfig = RasterizerConfig(),
+    ewa_reference_shape: tuple[int, int] | None = None,
 ) -> RenderOutput:
     """Render a batch of cameras over shared or per-camera Gaussian sets.
 
@@ -127,6 +131,11 @@ def render(
     means and covariances are made one camera at a time, inside the loop:
     the same float32 products as a batch of them, so the same bits, but a
     video over shared Gaussians holds one camera's copy, not all of them.
+    `ewa_reference_shape`: the full image of which this render is a band
+    of rows.  Its frustum bounds the EWA clamp (`project_gaussians`) and
+    its tile count sets the binning key's depth bits
+    (`bin_gaussians_prefix`), so that the band reproduces those rows of
+    the full render.
     """
     del far  # the rasterizer has no far plane (as in the JAX package)
     shared = means.ndim == 2
@@ -146,7 +155,7 @@ def render(
         outs.append(_render_one(
             m, c, sel(harmonics), sel(opacities),
             extrinsics[i], intrinsics[i], background[i], image_shape,
-            sh_degree, cfg,
+            sh_degree, cfg, ewa_reference_shape,
         ))
     return RenderOutput(
         color=torch.stack([o[0] for o in outs]),

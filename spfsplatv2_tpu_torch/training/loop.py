@@ -5,8 +5,16 @@ Builds the encoder, optimizer and train step, streams batches from the
 chunked dataset (the view-sampler curriculum reads the live global step),
 fits the microbatch to the card's memory, validates and checkpoints.
 
+Under an initialised process group of more than one rank (`torchrun`,
+`main.py`) the loop is data-parallel, as the JAX loop is on a mesh: each
+rank reads its own shard of the scenes and its own batch of
+`trainer.batch_size` (the global batch is batch_size x world size), the
+step averages the gradients over the ranks (`make_train_step(mesh=)`),
+the ranks agree on the smallest microbatch the memory guard finds, and
+rank 0 alone validates, logs and writes checkpoints.
+
 What differs from the JAX loop:
-  * world size 1: batches move to the encoder's device, no mesh;
+  * batches move to the encoder's device; each rank holds one device;
   * the memory guard probes instead of reading XLA's memory analysis:
     one forward and backward of the probe batch at the candidate
     microbatch, with no update (`probe_peak_gb`, `fit_microbatch`);
@@ -29,6 +37,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spfsplatv2_tpu_torch.config import (
     RootConfig,
@@ -47,6 +56,7 @@ from spfsplatv2_tpu_torch.models.distiller import (
     Dust3RDistiller,
     build_distiller,
 )
+from spfsplatv2_tpu_torch.parallel.mesh import make_mesh
 from spfsplatv2_tpu_torch.training.optim import FreezeConfig, Optimizer
 from spfsplatv2_tpu_torch.training.step import (
     HBMBudgetError,
@@ -57,6 +67,22 @@ from spfsplatv2_tpu_torch.training.step import (
 )
 
 CHECKPOINT_FILE = "state.pt"
+
+
+def world_rank() -> tuple[int, int]:
+    """(world size, rank) of the default process group; (1, 0) without
+    one."""
+    if not dist.is_available() or not dist.is_initialized():
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+def agree_microbatch(microbatch: int, device: torch.device) -> int:
+    """The smallest of the ranks' microbatches: every rank must run the
+    same number of backward passes a step, or DDP waits forever."""
+    t = torch.tensor([microbatch], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t)
 
 
 def batch_iterator(
@@ -255,6 +281,8 @@ def run_training(
     card), each probe's microbatch and peak, and its seconds.
     """
     device = torch.device(device)
+    world, rank = world_rank()
+    mesh = make_mesh(device_type=device.type) if world > 1 else None
     encoder = get_encoder(cfg.encoder, seed=cfg.trainer.seed, device=device)
     if cfg.checkpointing.pretrained_weights:
         load_pretrained_weights(encoder, cfg.encoder,
@@ -271,6 +299,8 @@ def run_training(
             entry.dataset,
             make_sampler_for_entry(entry, "train"),
             stage="train",
+            shard_id=rank,
+            num_shards=world,
             seed=cfg.trainer.seed + 1000 * i,
         )
         for i, entry in enumerate(entries)
@@ -323,7 +353,7 @@ def run_training(
             state, start_step = restored
             print(f"resumed from step {start_step}", flush=True)
 
-    rng = np.random.default_rng(cfg.trainer.seed)
+    rng = np.random.default_rng(cfg.trainer.seed + rank)
     total = max_steps if max_steps is not None else cfg.trainer.max_steps
     metrics = {}
     drop_cfg = cfg.train
@@ -333,7 +363,7 @@ def run_training(
     # Validation scene source: one scene every val_check_interval steps.
     # Without a `val` split validation is off; never fatal.
     val_example = None
-    if cfg.trainer.val_check_interval:
+    if cfg.trainer.val_check_interval and rank == 0:
         try:
             val_ds = ChunkedSceneDataset(
                 entries[0].dataset,
@@ -372,19 +402,22 @@ def run_training(
     t_guard = time.perf_counter()
     microbatch, peak_gb = fit_microbatch(
         probe, eff_batch, cfg.trainer.microbatch or None, budget_gb)
+    if world > 1:
+        microbatch = agree_microbatch(microbatch or eff_batch, device)
     guard = {"microbatch": microbatch or eff_batch, "peak_gb": peak_gb,
              "budget_gb": budget_gb, "probes": probes,
              "seconds": time.perf_counter() - t_guard}
     del probe_dev
     run_step = make_train_step(
         encoder, optimizer, image_shape, cfg.decoder, cfg.loss, lpips,
-        training_context=cfg.train.training_context, microbatch=microbatch)
+        training_context=cfg.train.training_context, microbatch=microbatch,
+        mesh=mesh)
     distill_step = None
     if distiller is not None:
         distill_step = make_train_step(
             encoder, optimizer, image_shape, cfg.decoder, cfg.loss, lpips,
             training_context=cfg.train.training_context, distiller=distiller,
-            microbatch=microbatch)
+            microbatch=microbatch, mesh=mesh)
 
     batch = first
     t_start = time.perf_counter()
@@ -395,7 +428,11 @@ def run_training(
         fn = (distill_step if distill_step is not None
               and step <= cfg.train.distill_max_steps else run_step)
         state, metrics = fn(state, to_device(batch, device))
-        if log_fn is not None and step % cfg.train.print_log_every_n_steps == 0:
+        if world > 1:
+            print(f"[rank {rank}/{world}] step {step} scenes {batch['scene']}",
+                  flush=True)
+        if (log_fn is not None and rank == 0
+                and step % cfg.train.print_log_every_n_steps == 0):
             logged = {k: float(v) for k, v in metrics.items()}
             if peak_gb is not None:
                 logged["mem/peak_hbm_gb"] = peak_gb
@@ -444,7 +481,7 @@ def run_training(
         (total - start_step) / (time.perf_counter() - t_start)
     )
     return {"state": state, "metrics": metrics, "encoder": encoder,
-            "guard": guard}
+            "guard": guard, "world": world, "rank": rank}
 
 
 def _read_state_dict(path: str) -> dict:
@@ -519,13 +556,19 @@ def save_checkpoint(ckpt_dir: Path, state: TrainState, step: int) -> Path:
 
     `torch.save` copies one tensor at a time to the host, so a full-width
     state (~7.3 GB) never has a second copy in host memory.  The file is
-    written under a temporary name and renamed.
+    written under a temporary name and renamed.  Under a process group of
+    several ranks, rank 0 writes (the replicas are identical) and every
+    rank waits for it at a barrier.
     """
     path = Path(ckpt_dir).absolute() / f"step_{step}"
-    path.mkdir(parents=True, exist_ok=True)
-    tmp = path / (CHECKPOINT_FILE + ".tmp")
-    torch.save(checkpoint_dict(state), tmp)
-    os.replace(tmp, path / CHECKPOINT_FILE)
+    world, rank = world_rank()
+    if rank == 0:
+        path.mkdir(parents=True, exist_ok=True)
+        tmp = path / (CHECKPOINT_FILE + ".tmp")
+        torch.save(checkpoint_dict(state), tmp)
+        os.replace(tmp, path / CHECKPOINT_FILE)
+    if world > 1:
+        dist.barrier()
     return path / CHECKPOINT_FILE
 
 

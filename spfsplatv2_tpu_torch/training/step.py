@@ -9,14 +9,18 @@ and the pose telemetry).  `make_train_step` returns `step(state, batch)
 -> (state, metrics)`: the backward pass, optionally accumulated over
 equal microbatches, then one update of `training/optim.py:Optimizer`.
 PyTorch updates the parameters in place, so the state holds the encoder
-and the optimizer.  The multi-device branch is not ported.
+and the optimizer.  Given a mesh whose `data` dim holds more than one
+rank, the step is data-parallel: DistributedDataParallel averages the
+gradients over that dim (the JAX step's `pmean` under `shard_map`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import disable_tf32
 from spfsplatv2_tpu_torch.geometry import se3
@@ -25,6 +29,7 @@ from spfsplatv2_tpu_torch.losses.mse import mse_loss
 from spfsplatv2_tpu_torch.losses.point import regr3d_loss
 from spfsplatv2_tpu_torch.losses.reproj import ReprojConfig, reproj_loss
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
+from spfsplatv2_tpu_torch.parallel.mesh import CollectiveAudit
 from spfsplatv2_tpu_torch.training.optim import Optimizer
 
 
@@ -220,6 +225,49 @@ def _split(batch: dict, n: int) -> list[dict]:
     return parts
 
 
+def data_parallel(encoder: torch.nn.Module, mesh):
+    """`encoder` under DistributedDataParallel over `mesh`'s `data` dim,
+    with a `CollectiveAudit` as its communication hook: (ddp, audit).
+
+    One wrapper an encoder and group, kept on the encoder, so that the
+    loop's steps with and without the teacher share its buckets.  Every
+    trainable parameter of every preset receives a gradient in each
+    backward, so DDP does not search for unused ones."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    group = mesh["data"].get_group()
+    cached = encoder.__dict__.get("_data_parallel")
+    if cached is not None and cached[0] is group:
+        return cached[1:]
+    dev = next(encoder.parameters()).device
+    ddp = DistributedDataParallel(
+        encoder, device_ids=[dev.index] if dev.type == "cuda" else None,
+        process_group=group, gradient_as_bucket_view=True)
+    audit = CollectiveAudit()
+    ddp.register_comm_hook(group, audit.hook)
+    # Outside `_modules`: the encoder's state_dict keeps its own keys.
+    object.__setattr__(encoder, "_data_parallel", (group, ddp, audit))
+    return ddp, audit
+
+
+def reduce_metrics(metrics: dict, group, device) -> dict:
+    """Float metrics averaged over `group`, integer counters summed (the
+    JAX step's `pmean` / `psum`), in one collective each."""
+    out = dict(metrics)
+    world = dist.get_world_size(group)
+    for kind, dtype in ((float, torch.float64), (int, torch.int64)):
+        keys = sorted(k for k, v in metrics.items() if isinstance(v, kind))
+        if not keys:
+            continue
+        vals = torch.tensor([metrics[k] for k in keys], dtype=dtype,
+                            device=device)
+        dist.all_reduce(vals, group=group)
+        if kind is float:
+            vals = vals / world
+        out.update(zip(keys, vals.tolist()))
+    return out
+
+
 def make_train_step(
     encoder,
     optimizer: Optimizer,
@@ -242,10 +290,18 @@ def make_train_step(
     full batch's), float metrics are averaged and integer counters summed,
     and ONE optimizer update is applied.  Metrics come back as Python
     numbers, with "grad/max" and "grad/skipped_steps" from the optimizer.
+    `mesh`: a `parallel/mesh.py:make_mesh` mesh.  When its `data` dim
+    holds more than one rank, each rank takes its own batch, every
+    microbatch but the last runs under `no_sync()` and the last one's
+    backward all-reduces the accumulated gradient (the mean over the
+    ranks), metrics are averaged (floats) or summed (counters) over the
+    ranks, and every rank applies the same update to its replica.
+    `step.audit` then counts the step's all-reduces (else it is None).
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet")
     disable_tf32()
+    ddp = audit = None
+    if mesh is not None and mesh["data"].size() > 1:
+        ddp, audit = data_parallel(encoder, mesh)
 
     def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         b = batch["context"]["image"].shape[0]
@@ -256,23 +312,33 @@ def make_train_step(
                                  f"{microbatch}")
             n = b // microbatch
         state.encoder.train()
+        model = state.encoder if ddp is None else ddp
+        if audit is not None:
+            audit.reset()
         optimizer.zero_grad()
         sums = {}
-        for mb in _split(batch, n):
-            loss, metrics = compute_losses(
-                state.encoder, mb, state.step, image_shape, decoder_cfg,
-                loss_cfg, lpips, training_context, distiller)
-            (loss / n).backward()
+        for i, mb in enumerate(_split(batch, n)):
+            local = (ddp.no_sync() if ddp is not None and i < n - 1
+                     else contextlib.nullcontext())
+            with local:
+                loss, metrics = compute_losses(
+                    model, mb, state.step, image_shape, decoder_cfg,
+                    loss_cfg, lpips, training_context, distiller)
+                (loss / n).backward()
             for k, m in metrics.items():
                 sums[k] = sums.get(k, 0) + m
         metrics = {k: (float(m) / n if m.is_floating_point() else int(m))
                    for k, m in sums.items()}
+        if ddp is not None:
+            metrics = reduce_metrics(metrics, ddp.process_group,
+                                     next(state.encoder.parameters()).device)
         optimizer.step()
         metrics["grad/max"] = optimizer.last_max_grad
         metrics["grad/skipped_steps"] = optimizer.skipped_count
         state.step += 1
         return state, metrics
 
+    step.audit = audit
     return step
 
 

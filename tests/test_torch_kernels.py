@@ -959,7 +959,13 @@ def test_port_imports_without_jax():
                      "spfsplatv2_tpu_torch.evaluation.index_generator",
                      "spfsplatv2_tpu_torch.geometry.projection",
                      "spfsplatv2_tpu_torch.utils.camera_trajectory",
-                     "spfsplatv2_tpu_torch.utils.ply_export"):
+                     "spfsplatv2_tpu_torch.utils.ply_export",
+                     "spfsplatv2_tpu_torch.parallel.mesh",
+                     "spfsplatv2_tpu_torch.parallel.raster_shard",
+                     "spfsplatv2_tpu_torch.utils.drawing",
+                     "spfsplatv2_tpu_torch.utils.logger",
+                     "spfsplatv2_tpu_torch.utils.profiling",
+                     "spfsplatv2_tpu_torch.data.convert_dl3dv"):
             assert name in sys.modules, name
         print("imported", len(sys.modules))
     """)
