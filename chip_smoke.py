@@ -30,6 +30,16 @@ Phases, each printing JSON lines:
      versions) on the same Gaussians.
   6. where the time goes: the decoder's stages and the encoder's backbone
      timed apart with CUDA events;
+     "ortho_256": the first request's 131,072 Gaussians rendered by
+     `models/decoder.py:decode_orthographic` at 256^2 from its first
+     context view's camera, the view's world-space width and height the
+     1st-99th percentile span of the means' x and y there: the render
+     through K1 and K3 against their plain versions on the card, the
+     render and a photometric loss's backward with respect to the means
+     and the pose with the launch counts read around exactly them (K1 1,
+     K3 2, K2 1), that K2 launch against its plain version, and the
+     render's, the forward-plus-backward's and K1's and K2's ms beside
+     the perspective render's of the same Gaussians from that camera;
   7. K2 (`composite_backward`, csrc/composite_backward.cu) against its
      plain version on phase 4's scene and bins with seeded cotangents, and
      its gradients against the dense oracle's autograd on the 64^2 scene;
@@ -59,7 +69,13 @@ Phases, each printing JSON lines:
      through K1 and K3 against the same render through their plain
      versions on the card, K3 on each of the binning's real inputs, and
      K2 on that camera's bins against its plain version; K1 and K2 timed
-     on those bins beside their bounds;
+     on those bins beside their bounds; "ortho_1024": "ortho_256"'s
+     checks on that request's 2 x 1024^2 Gaussians (the quantized depth
+     key, which `decode_orthographic` keys relative to the nearest
+     Gaussian), and the share of pixels within 1e-4 of the exact depth
+     order's render (rank key) on 2^18 of them, under JAX's quantized key,
+     the port's relative key (at least 99.9%) and, beside them, the
+     perspective render's quantized key;
      "conv_probe": every float32 3x3 or 7x7 convolution of the flagship's
      DPT heads (`head_conv1` 256 -> 128 on the core's maps, `head_conv2`
      128 -> 128, the GS head's `input_merger` 3 -> 256 7x7 and
@@ -211,6 +227,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -274,6 +291,9 @@ K3_PROFILE_CALLS = 50
 # 12 + 12 decoder blocks; the 12th call (encoder block 12) is held
 # against the plain version on its real q, k, v.
 K5_PER_PASS, K5_CHECK_CALL = 48, 11
+# Gaussians of the 1024^2 request whose orthographic render is held
+# against the exact depth order: 18 rank bits + 13 tile bits = 31.
+ORTHO_ORDER_SAMPLE = 1 << 18
 # The command line (phases "cli_*"): the flagship preset with overrides
 # only.  Synthetic chunks at the preset's original_image_shape: 8 train
 # scenes (a batch of 16 holds each twice; writing the frames is most of
@@ -456,18 +476,29 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
 def profile_calls(torch, fn, calls: int) -> tuple:
     """Device time per call of `fn` from torch.profiler's records of the
     device's kernels and memsets over `calls` calls, and those records per
-    call by name."""
-    from torch.profiler import ProfilerActivity, profile
+    call by name.  The profiler runs one warm-up step (one call) whose
+    records it discards: a window opened cold can miss the first call's
+    device records (one of 50 calls' memsets, at times its kernel)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kept.extend(p.events())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        prof.step()
+    # The step's own marker ("ProfilerStep#1") lies on the device's
+    # timeline too.
+    ops = [e for e in kept
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
     if not ops:
         fail("torch.profiler recorded no device time")
     names: dict[str, int] = {}
@@ -1086,6 +1117,154 @@ def check_first_k2(torch, raster_cuda, seen: dict, where: str) -> dict:
         rows_p = raster_cuda.composite_backward_plain(*seen["args"])
     return check_k2_rows(raster_cuda.accumulate_rows, seen["rows"], rows_p,
                          seen["bins"], seen["g"], where)
+
+
+def ortho_phase(torch, dev, where: str, gaussians, c2w, intrinsics, near,
+                far, size: tuple, dec_cfg, seed: int,
+                order_sample: int = 0) -> dict:
+    """The orthographic render (`decode_orthographic`) of the first
+    scene's Gaussians from the first context view's camera `c2w` (1, 1,
+    4, 4), its world-space width and height the 1st-99th percentile span
+    of the means' x and y in that camera: through K1 and K3 against the
+    plain versions (`render_vs_plain`), one render and the backward of a
+    photometric loss with respect to the means and the pose with the
+    launch counts read around exactly that (K1 1, K3 2, K2 1), the first
+    K2 launch against its plain version, and the render's, the
+    forward-plus-backward's and K1's and K2's ms beside the perspective
+    render's of the same Gaussians from the same camera.  With
+    `order_sample`, also the share of pixels whose colour is within 1e-4
+    of the exact depth order's (rank key) on that many of the Gaussians:
+    under JAX's quantized key (`decode_splatting` on the orthographic
+    cameras) and under the port's relative key (`decode_orthographic`),
+    the perspective render's quantized key beside them.  Its random draws
+    come from `seed`."""
+    from spfsplatv2_tpu_torch.models.decoder import (
+        decode_orthographic,
+        decode_splatting,
+        orthographic_cameras,
+    )
+    from spfsplatv2_tpu_torch.ops import cuda_lib, raster_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = gaussians.map(lambda a: a[:1].detach())
+    rot, origin = c2w[0, 0, :3, :3], c2w[0, 0, :3, 3]
+    xy = ((g.means[0] - origin) @ rot)[:, :2]
+    lo, hi = torch.quantile(xy, torch.tensor([0.01, 0.99], device=dev), dim=0)
+    width, height = (hi - lo).reshape(2, 1, 1)
+    views = {
+        "ortho": (decode_orthographic, (width, height, near, far, size,
+                                        dec_cfg)),
+        "perspective": (decode_splatting, (intrinsics, near, far, size,
+                                           dec_cfg)),
+    }
+    check, scan_ns = render_vs_plain(torch, decode_orthographic,
+                                     (c2w, *views["ortho"][1]), g, where)
+    target = torch.rand((1, 1, *size, 3), generator=gen, device=dev)
+
+    def render(view):
+        decode, args = views[view]
+        with torch.no_grad():
+            return decode(g, c2w, *args)
+
+    def loss_and_grads(view):
+        decode, args = views[view]
+        means = g.means.clone().requires_grad_(True)
+        pose = c2w.clone().requires_grad_(True)
+        out = decode(dataclasses.replace(g, means=means), pose, *args)
+        loss = ((out.color - target) ** 2).mean()
+        return out, torch.autograd.grad(loss, [means, pose])
+
+    cuda_lib.reset_launch_counts()
+    with first_k2_launch(raster_cuda) as seen:
+        out, grads = loss_and_grads("ortho")
+    counts = dict(cuda_lib.launch_counts)
+    want = {k: 0 for k in counts}
+    want.update(composite_forward=1, cumsum_1d=2, composite_backward=1)
+    if counts != want:
+        fail(f"{where}: launch counts {counts}, expected {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in (*grads, out.color)):
+        fail(f"{where}: non-finite render or gradient")
+    grad_max = [float(x.abs().max()) for x in grads]
+    del out, grads
+    k2 = check_first_k2(torch, raster_cuda, seen, where)
+    # K1 and K2 timed on each view's bins (K2's recorded inputs, which end
+    # in the dispatcher's chunk, detached: the plain walk on the saved
+    # rows would otherwise build an autograd graph of every chunk's
+    # temporaries), beside their bounds.
+    kernels = {}
+    for view in views:
+        if view != "ortho":
+            with first_k2_launch(raster_cuda) as seen:
+                loss_and_grads(view)
+        kargs = [a.detach() if torch.is_tensor(a) else a
+                 for a in seen["args"]]
+        bins = seen["bins"]
+        del seen
+        _, walked, blended = raster_cuda.composite_forward_plain_work(
+            *kargs[:5])
+        kernels[view] = {"n_live": int(bins.n_live), "pairs_walked": walked,
+                         "pairs_blended": blended,
+                         "tiles_occupied": int((bins.counts > 0).sum()),
+                         "max_tile_entries": int(bins.counts.max())}
+        for name, fn, fargs, backward in (
+                ("composite_forward", raster_cuda.composite_forward_cuda,
+                 kargs[:5], False),
+                ("composite_backward", raster_cuda.composite_backward_cuda,
+                 kargs[:7], True)):
+            kernels[view][name] = {
+                "ms": time_ms(torch, lambda fn=fn, fargs=fargs: fn(*fargs), 20),
+                **composite_bound(bins, walked, blended, kargs[5].numel(),
+                                  backward)}
+    once = {v: render(v) for v in views}
+    result = {
+        "phase": where, "g": g.means.shape[1], "hw": list(size),
+        "width": float(width), "height": float(height),
+        "render_vs_plain": check, "k3_exact_on_inputs_n": scan_ns,
+        "k2_vs_plain": k2, "launches": counts,
+        "grad_max_abs": {"means": grad_max[0], "c2w": grad_max[1]},
+        "kernels": kernels,
+        "dropped_entries": {v: int(o.dropped_entries.sum())
+                            for v, o in once.items()},
+        "alpha_mean": {v: float(o.alpha.mean()) for v, o in once.items()},
+        **{f"{v}_render_ms": time_ms(torch, lambda v=v: render(v), 10)
+           for v in views},
+        **{f"{v}_fwd_bwd_ms": time_ms(torch, lambda v=v: loss_and_grads(v),
+                                      10) for v in views},
+    }
+    del once
+    if order_sample:
+        idx = torch.randperm(g.means.shape[1], generator=gen,
+                             device=dev)[:order_sample]
+        sub = g.map(lambda a: a[:, idx])
+        rank_cfg = dataclasses.replace(
+            dec_cfg, rasterizer=dataclasses.replace(dec_cfg.rasterizer,
+                                                    depth_key="rank"))
+        cams = orthographic_cameras(c2w, width, height, near, far)
+        persp = (c2w, intrinsics, near, far, size)
+        with torch.no_grad():
+            renders = {
+                "exact": decode_splatting(sub, *cams, size, rank_cfg),
+                "jax_quantized": decode_splatting(sub, *cams, size, dec_cfg),
+                "port_relative": decode_orthographic(
+                    sub, c2w, *views["ortho"][1]),
+                "perspective_exact": decode_splatting(sub, *persp, rank_cfg),
+                "perspective_quantized": decode_splatting(sub, *persp,
+                                                          dec_cfg)}
+
+        def share(name, exact="exact"):
+            diff = (renders[name].color - renders[exact].color).abs().amax(-1)
+            return float((diff <= 1e-4).float().mean())
+
+        result["order_agreement_within_1e-4"] = {
+            "g": order_sample, "jax_quantized": share("jax_quantized"),
+            "port_relative": share("port_relative"),
+            "perspective_quantized": share("perspective_quantized",
+                                           "perspective_exact")}
+        if result["order_agreement_within_1e-4"]["port_relative"] < 0.999:
+            fail(f"{where}: the relative key's render departs from the exact "
+                 f"depth order: {result['order_agreement_within_1e-4']}")
+    emit(result)
+    return result
 
 
 def encoder_pass_capturing_k5(torch, attention, encoder, ex) -> tuple:
@@ -3309,6 +3488,13 @@ def main() -> int:
                                    t["image"][None], t["intrinsics"][None]), 5)
     emit({"phase": "breakdown", **stages})
 
+    # ---- ortho_256: the same Gaussians, orthographic ------------------
+    # The first request's Gaussians from its first context view's camera.
+    ortho_256 = ortho_phase(
+        torch, dev, "ortho_256", out["gaussians"],
+        out["extrinsics_cwt"][:, :1], c["intrinsics"][None, :1],
+        c["near"][None, :1], c["far"][None, :1], (hw, hw), dec_cfg, SEED + 256)
+
     # ---- 7. K2: composite_backward -----------------------------------
     # Phase 4's scene, bins and K1 output, with seeded cotangents.
     cot = torch.randn(out_k.shape, generator=gen, device=dev)
@@ -3543,7 +3729,19 @@ def main() -> int:
           "render_vs_plain": render_check, "k3_exact_on_inputs_n": scan_ns,
           "k2_vs_plain": k2_long, "kernels": at_1024,
           "seconds_total": time.perf_counter() - t_start})
+    long_gaussians = long_out["gaussians"]
+    long_ctx_pose = long_out["extrinsics_cwt"][:, :1]
     del long_out, g0, lproj, lbins, largs, lfwd, lcot, lrows_k
+    torch.cuda.empty_cache()
+    # ortho_1024: the same request's Gaussians, orthographic, with the
+    # depth order's agreement on 2^18 of them (the rank key fits 31 bits).
+    lctx = long_requests[0]["context"]
+    ortho_1024 = ortho_phase(
+        torch, dev, "ortho_1024", long_gaussians, long_ctx_pose,
+        lctx["intrinsics"][None, :1], lctx["near"][None, :1],
+        lctx["far"][None, :1], long_size, long_dec, SEED + 1024,
+        order_sample=ORTHO_ORDER_SAMPLE)
+    del long_gaussians, long_ctx_pose
     torch.cuda.empty_cache()
 
     # ---- conv_probe: the flagship heads' float32 convolutions ----------
@@ -3708,6 +3906,8 @@ def main() -> int:
     # (phases "K5" and "K5_f32" have all three); the backward kernels'
     # entries add their times at the train steps' shapes.
     paths = {"serving_3_requests": counts, "align_100_steps": align_counts,
+             "ortho_256_render_and_backward": ortho_256["launches"],
+             "ortho_1024_render_and_backward": ortho_1024["launches"],
              "train_3_steps": train_counts, "train_segscan_step": segscan_counts,
              "serving_1024_3_requests": long_counts,
              "train_1024_2_steps": long_train_counts,
@@ -3787,6 +3987,10 @@ def main() -> int:
                    "render_1024_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in render_check.items()},
+                   **{f"render_{o['phase']}_vs_plain_max_abs_err": {
+                       key: c["max_abs_err"]
+                       for key, c in o["render_vs_plain"].items()}
+                      for o in (ortho_256, ortho_1024)},
                    "render_1024_f32_vs_plain_max_abs_err": {
                        key: c["max_abs_err"]
                        for key, c in f32["render_check"].items()},
@@ -3812,6 +4016,8 @@ def main() -> int:
                    k2_check["rows_over_1e-4_of_max"],
                    "vs_oracle_64px_max_abs_err": max(k2_oracle.values()),
                    "camera_1024_vs_plain": k2_long,
+                   "ortho_256_backward_vs_plain": ortho_256["k2_vs_plain"],
+                   "ortho_1024_backward_vs_plain": ortho_1024["k2_vs_plain"],
                    "train_1024_f32_step_vs_plain": f32["k2_check"],
                    "vggt_train_step_vs_plain": vggt["k2_check"],
                    "v1_train_step_vs_plain": v1["k2_check"],
@@ -3831,6 +4037,9 @@ def main() -> int:
                    "f32_max_abs_err": max(c["f32_max_abs_err"]
                                           for c in checks),
                    "int32_exact_on_1024_binning_inputs_n": scan_ns,
+                   "int32_exact_on_ortho_binning_inputs_n": [
+                       *ortho_256["k3_exact_on_inputs_n"],
+                       *ortho_1024["k3_exact_on_inputs_n"]],
                    "int32_exact_on_vggt_binning_inputs_n": vggt["scan_ns"],
                    "int32_exact_on_v1_binning_inputs_n": v1["scan_ns"]}},
         {"name": "segmented_scan", "route": "cuda",

@@ -63,3 +63,6 @@ class Benchmarker:
                 "bytes_limit": torch.cuda.mem_get_info(self.device)[1],
             }
         path.write_text(json.dumps({"device_0": stats}, indent=2))
+
+    def clear(self) -> None:
+        self.execution_times.clear()

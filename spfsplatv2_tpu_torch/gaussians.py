@@ -49,3 +49,13 @@ class Gaussians:
     def map(self, fn) -> "Gaussians":
         """Apply `fn` to every field (e.g. select one scene of a batch)."""
         return Gaussians(**{f.name: fn(getattr(self, f.name)) for f in fields(self)})
+
+    def astype(self, dtype: torch.dtype) -> "Gaussians":
+        return self.map(lambda x: x.to(dtype))
+
+
+def concatenate(gaussians: list[Gaussians], axis: int = 1) -> Gaussians:
+    """Concatenate Gaussian batches along a batch axis."""
+    return Gaussians(**{
+        f.name: torch.cat([getattr(g, f.name) for g in gaussians], dim=axis)
+        for f in fields(Gaussians)})

@@ -1,7 +1,7 @@
 """SE(3)/SO(3) algebra and camera-pose utilities (torch port).
 
-Counterpart of `spfsplatv2_tpu/geometry/se3.py`, restricted to the
-functions the serving, training, video and PLY paths use.  Extrinsics are
+Counterpart of `spfsplatv2_tpu/geometry/se3.py` (its host-side
+`pose_auc` lives in `evaluation/metrics.py`).  Extrinsics are
 camera-to-world (c2w) 4x4 matrices; quaternions are (w, x, y, z).
 """
 
@@ -71,6 +71,12 @@ def rotation_6d_to_matrix(d6: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.stack([b1, b2, b3], dim=-2)
 
 
+def matrix_to_rotation_6d(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two rows, flattened (the
+    inverse of `rotation_6d_to_matrix` on rotations)."""
+    return m[..., :2, :].reshape(*m.shape[:-2], 6)
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """(..., 3) -> (..., 3, 3) skew-symmetric cross-product matrix."""
     zeros = torch.zeros_like(v[..., 0])
@@ -134,6 +140,11 @@ def inverse_se3(m: torch.Tensor) -> torch.Tensor:
     t = m[..., :3, 3]
     rt = r.transpose(-1, -2)
     return pack_rt(rt, -(rt @ t[..., None])[..., 0])
+
+
+def relative_pose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^-1 @ b for c2w poses."""
+    return inverse_se3(a) @ b
 
 
 def pose_encoding_to_matrix(enc: torch.Tensor) -> torch.Tensor:

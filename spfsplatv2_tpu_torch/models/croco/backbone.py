@@ -60,6 +60,10 @@ class CrocoBackboneConfig:
     remat: bool = True
 
     @property
+    def num_extra_tokens(self) -> int:
+        return int(self.intrinsics_token) + int(self.pose_token)
+
+    @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
@@ -196,7 +200,7 @@ class MaskedCrocoBackbone(nn.Module):
         p = gh * gw
         # Each view's self-attention: p keys in the encoder, p plus the
         # intrinsics and pose tokens in the decoders.
-        dec_keys = p + int(cfg.intrinsics_token) + int(cfg.pose_token)
+        dec_keys = p + cfg.num_extra_tokens
         reason = flash_limits_violation(
             images.device, cfg.dtype,
             [(p, cfg.enc_embed_dim // cfg.enc_num_heads),

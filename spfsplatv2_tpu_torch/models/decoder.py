@@ -1,14 +1,16 @@
 """Splatting decoder: Gaussians + cameras -> rendered images and depths
-(torch port of `spfsplatv2_tpu/models/decoder.py:decode_splatting`).
+(torch port of `spfsplatv2_tpu/models/decoder.py`).
 
 The JAX function vmaps the render over the batch; here it is a loop over
 scenes, and `render` loops over cameras: one compositing launch per
-rendered camera.
+rendered camera.  `decode_orthographic` renders through the same path
+from cameras moved far back behind a tiny field of view.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -74,3 +76,68 @@ def decode_splatting(
         alpha=torch.stack([o.alpha for o in outs]),
         dropped_entries=torch.stack([o.dropped_entries for o in outs]),
     )
+
+
+def orthographic_cameras(
+    extrinsics: torch.Tensor,   # (b, v, 4, 4) c2w
+    width: torch.Tensor,        # (b, v) world-space view width
+    height: torch.Tensor,       # (b, v) world-space view height
+    near: torch.Tensor,         # (b, v)
+    far: torch.Tensor,          # (b, v)
+    fov_degrees: float = 0.1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The perspective cameras that fake an orthographic view: each camera
+    moved back along its own -z by `distance`, where a `fov_degrees`
+    frustum spans `width`, with the normalized pinhole K of that frustum
+    and near/far moved back with it -> (extrinsics, intrinsics, near,
+    far).
+
+    The shift is the closed form of the JAX function's `extrinsics @
+    shift`, t' = t - distance * R[:, 2], elementwise: as a matmul, a TF32
+    setting anywhere in the process would round a translation of ~573 x
+    width by ~1e-3 of itself."""
+    tan_fov_x = math.tan(math.radians(fov_degrees) * 0.5)
+    distance = (0.5 * width) / tan_fov_x
+    tan_fov_y = 0.5 * height / distance
+    t = extrinsics[..., :3, 3] - distance[..., None] * extrinsics[..., :3, 2]
+    shifted = torch.cat([
+        torch.cat([extrinsics[..., :3, :3], t[..., None]], dim=-1),
+        extrinsics[..., 3:, :],
+    ], dim=-2)
+    k = torch.zeros((*extrinsics.shape[:2], 3, 3), dtype=extrinsics.dtype,
+                    device=extrinsics.device)
+    k[..., 0, 0] = 0.5 / tan_fov_x
+    k[..., 1, 1] = 0.5 / tan_fov_y
+    k[..., 0, 2] = 0.5
+    k[..., 1, 2] = 0.5
+    k[..., 2, 2] = 1.0
+    return shifted, k, near + distance, far + distance
+
+
+def decode_orthographic(
+    gaussians: Gaussians,       # (b, g, ...)
+    extrinsics: torch.Tensor,   # (b, v, 4, 4) c2w
+    width: torch.Tensor,        # (b, v) world-space view width
+    height: torch.Tensor,       # (b, v) world-space view height
+    near: torch.Tensor,         # (b, v)
+    far: torch.Tensor,          # (b, v)
+    image_shape: tuple[int, int],
+    cfg: DecoderConfig = DecoderConfig(),
+    fov_degrees: float = 0.1,
+) -> DecoderOutput:
+    """Approximately orthographic rendering for figures (reference:
+    render_cuda_orthographic, src/model/decoder/cuda_splatting.py:146-255):
+    `decode_splatting` from `orthographic_cameras`, so the render runs K3
+    twice and K1 once a camera, and K2 in its backward.
+
+    Under `depth_key="quantized"` the binning keys each depth relative to
+    the nearest live one ("relative"): moved back by ~573 x width, every
+    depth shares its top float32 bits with its neighbours', and the
+    quantized key would composite the scene in index order (JAX's
+    function does; ROADMAP.md section 3)."""
+    if cfg.rasterizer.depth_key == "quantized":
+        cfg = dataclasses.replace(cfg, rasterizer=dataclasses.replace(
+            cfg.rasterizer, depth_key="relative"))
+    cams = orthographic_cameras(extrinsics, width, height, near, far,
+                                fov_degrees)
+    return decode_splatting(gaussians, *cams, image_shape, cfg)

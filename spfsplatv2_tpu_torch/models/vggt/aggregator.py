@@ -70,6 +70,14 @@ def global_view_mask_blocks(v: int, num_target: int, view_valid=None,
     return torch.where(blocked, float("-inf"), 0.0).to(torch.float32)
 
 
+def global_view_mask(v: int, p: int, num_target: int,
+                     dtype: torch.dtype = torch.float32,
+                     device=None) -> torch.Tensor:
+    """(v*p, v*p) token-level expansion of `global_view_mask_blocks`."""
+    mask = global_view_mask_blocks(v, num_target, device=device).to(dtype)
+    return mask.repeat_interleave(p, dim=0).repeat_interleave(p, dim=1)
+
+
 class VGGTAggregator(nn.Module):
     def __init__(self, cfg: AggregatorConfig = AggregatorConfig()):
         super().__init__()

@@ -53,6 +53,27 @@ def rank_key_bits(g: int, n_tiles: int) -> int:
     return max((g - 1).bit_length(), 1) + (n_tiles + 1).bit_length()
 
 
+# Bits of `relative_depth_bits`: 5 of exponent (2^-31 to 1) and 23 of
+# mantissa.
+RELATIVE_BITS = 28
+
+
+def relative_depth_bits(depth: torch.Tensor,
+                        live: torch.Tensor) -> torch.Tensor:
+    """Each live depth's distance behind the nearest live one, over the
+    live span, clamped to [2^-31, 1], as the low RELATIVE_BITS of its
+    float32 bits: (g,) int32 in [0, 2^28), monotone in depth.  The top k
+    of them resolve a depth to 2^-(k - 5) of its distance behind the
+    nearest; the quantized key's k bits resolve it to 2^-(k - 8) of the
+    depth itself."""
+    d = depth.to(torch.float32)
+    nearest = torch.where(live, d, torch.inf).amin()
+    offset = torch.where(live, d - nearest, torch.zeros_like(d))
+    span = torch.clamp(offset.amax(), min=torch.finfo(torch.float32).tiny)
+    x = torch.clamp(offset / span, min=2.0 ** -31, max=1.0)
+    return x.contiguous().view(torch.int32) - ((127 - 31) << 23)
+
+
 class PrefixBins(NamedTuple):
     """Prefix entry layout; see `spfsplatv2_tpu/ops/raster_tiled.py`.
 
@@ -98,6 +119,11 @@ def bin_gaussians_prefix(
     """Prefix-layout binning (non-differentiable); two-tier when
     `base_tiles_per_gaussian` < `max_tiles_per_gaussian`.
 
+    `depth_key`: "rank" (the exact depth rank), "quantized" (the top
+    bits of the float32 depth, as the JAX package) or "relative" (the
+    top bits of `relative_depth_bits`: an orthographic view's depths lie
+    within ~1e-3 of each other, one or two steps of the quantized key,
+    which would composite them in index order).
     `key_shape`: the image whose tile count sets the key's split between
     tile id and depth bits (default `image_shape`).  A band of a larger
     image passes the larger image's shape, so that the quantized depth
@@ -128,6 +154,10 @@ def bin_gaussians_prefix(
     if depth_key == "quantized":
         row_bits = 31 - tile_bits
         rank = torch.clamp(depth_bits, min=0) >> (31 - row_bits)
+    elif depth_key == "relative":
+        row_bits = 31 - tile_bits
+        rank = relative_depth_bits(depth, live_g) >> max(
+            RELATIVE_BITS - row_bits, 0)
     elif depth_key == "rank":
         row_bits = rank_key_bits(g, key_tiles) - tile_bits
         order = torch.argsort(depth_bits, stable=True)

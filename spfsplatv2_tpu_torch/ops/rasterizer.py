@@ -49,6 +49,8 @@ class RasterizerConfig:
     # g * big_pool_factor rows.  None = single-tier.
     base_tiles_per_gaussian: int | None = 4
     big_pool_factor: float = 0.125
+    # The prefix binning's depth key: "rank", "quantized" or "relative"
+    # (`raster_tiled.bin_gaussians_prefix`).
     depth_key: str = "rank"
 
 

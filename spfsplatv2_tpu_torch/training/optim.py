@@ -60,6 +60,11 @@ class FreezeConfig:
     freeze_backbone: bool = False
     freeze_pose_head: bool = False
 
+    @property
+    def any(self) -> bool:
+        return (self.freeze_pretrained or self.freeze_backbone
+                or self.freeze_pose_head)
+
     def is_frozen(self, name: str) -> bool:
         if self.freeze_pose_head and "pose_head" in name:
             return True
