@@ -215,7 +215,16 @@ Phases, each printing JSON lines:
      card), on chunks that `data/convert_dl3dv.py` writes from seeded
      nerfstudio-layout scenes of 270 x 480 frames; each rank's scenes
      (disjoint), the step lines and the checkpoint's bytes; then
-     mode=test in this process from rank 0's checkpoint.
+     mode=test in this process from rank 0's checkpoint;
+ 31. "overfit_short": `spfsplatv2_tpu_torch.overfit`, the flagship
+     overfit recipe (full width, seeded init, one synthetic 256^2 scene,
+     b = 2), for 100 steps with a curve point every 10, its train step
+     wrapped to read the launch counts around each step: every loss and
+     PSNR finite, skipped steps under 5% of the steps + 10, the mean loss
+     of the last 20 steps below that of the first 20, K1 2, K3 4 and K2 2
+     launches in each step; the curve and the steps a second printed, and
+     step 50 under torch.profiler (its device busy share, costliest
+     kernels).
 Then the script's seconds so far (phase "done"), the kernels line (each
 kernel's times, bound, launches on its path and check results), the
 card's name and power limit, and the result.
@@ -387,6 +396,20 @@ CLI_DDP_SCENES, CLI_DDP_FRAMES, CLI_DDP_STEPS, CLI_DDP_BATCH = 56, 12, 3, 8
 CLI_DDP_INDEX = {"test_000": {"context": [0, 6], "target": [3], "overlap": 0.4},
                  "test_001": {"context": [2, 8], "target": [4, 5],
                               "overlap": 0.5}}
+# "overfit_short": `spfsplatv2_tpu_torch.overfit`'s recipe (the flagship
+# at full width from a seeded init on one synthetic 256^2 scene, b = 2)
+# for OVERFIT_STEPS steps, a curve point every OVERFIT_LOG_EVERY.  It
+# gates only what noise cannot break: finite losses, skipped steps under
+# 5% of the steps + 10 (a collapse skips every step), the mean loss of the
+# last OVERFIT_WINDOW steps below that of the first, and each step's
+# launches: one target a sample, so K1 and K2 twice and K3 four times.
+# Step OVERFIT_PROFILE_STEP runs under torch.profiler: the step's device
+# busy share and its costliest kernels (recorded, not gated).
+OVERFIT_STEPS, OVERFIT_LOG_EVERY, OVERFIT_WINDOW = 100, 10, 20
+OVERFIT_PROFILE_STEP = 50
+OVERFIT_STEP_LAUNCHES = {"composite_forward": 2, "cumsum_1d": 4,
+                         "composite_backward": 2}
+FLAGSHIP_PARAMS = 608_017_854
 
 
 def emit(obj: dict) -> None:
@@ -3153,6 +3176,102 @@ def cli_ddp_phase(torch, repo: Path, dev) -> dict:
     return {"cli_ddp_test": test_counts}
 
 
+def overfit_short_phase(torch, repo: Path, dev) -> dict:
+    """Phase "overfit_short": `overfit.run_overfit` for OVERFIT_STEPS
+    steps on the card under `build/overfit_short/` (deleted after), the
+    loop's train step wrapped to read the launch counts and the loss
+    around each step, and to profile one step.  Returns the run's launch
+    counts (the steps and the memory guard's probe)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spfsplatv2_tpu_torch import overfit
+    from spfsplatv2_tpu_torch.ops import cuda_lib
+    from spfsplatv2_tpu_torch.training import loop
+
+    root = repo / "build" / "overfit_short"
+    shutil.rmtree(root, ignore_errors=True)
+    steps, profiled = [], {}
+    real = loop.make_train_step
+
+    def profiled_step(step_fn, state, batch):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # A user annotation's device span (the optimizer's step) covers
+        # kernels already counted: device operations only.
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+        by_name = {}
+        for e in kernels:
+            by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + \
+                e.device_time_total / 1e3
+        profiled.update(
+            step=len(steps), wall_ms_under_profiler=wall_ms,
+            device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+            device_operations=len(kernels),
+            top_ms_name=sorted(((v, k) for k, v in by_name.items()),
+                               reverse=True)[:8])
+        return out
+
+    def counted(*args, **kwargs):
+        step_fn = real(*args, **kwargs)
+
+        def step(state, batch):
+            before = dict(cuda_lib.launch_counts)
+            if len(steps) == OVERFIT_PROFILE_STEP:
+                state, metrics = profiled_step(step_fn, state, batch)
+            else:
+                state, metrics = step_fn(state, batch)
+            steps.append({"launches": {k: v - before[k] for k, v in
+                                       cuda_lib.launch_counts.items()},
+                          **metrics})
+            return state, metrics
+
+        step.audit = step_fn.audit
+        return step
+
+    loop.make_train_step = counted
+    try:
+        art = overfit.run_overfit(
+            root, root / "artifact.json", OVERFIT_STEPS, dev,
+            [f"train.print_log_every_n_steps={OVERFIT_LOG_EVERY}"])
+    finally:
+        loop.make_train_step = real
+    want = {k: OVERFIT_STEP_LAUNCHES.get(k, 0) for k in cuda_lib.launch_counts}
+    losses = np.array([st["loss/total"] for st in steps])
+    psnrs = np.array([st["train/psnr"] for st in steps])
+    skipped = steps[-1]["grad/skipped_steps"]
+    first = float(losses[:OVERFIT_WINDOW].mean())
+    last = float(losses[-OVERFIT_WINDOW:].mean())
+    checks = {
+        "steps": len(steps) == OVERFIT_STEPS,
+        "finite": bool(np.isfinite(losses).all() and np.isfinite(psnrs).all()),
+        "skipped": skipped < 0.05 * OVERFIT_STEPS + 10,
+        "loss_falls": last < first,
+        "launches_each_step": all(st["launches"] == want for st in steps),
+        "params": art["params"] == FLAGSHIP_PARAMS,
+    }
+    emit({"phase": "overfit_short", "steps": len(steps),
+          "steps_per_s": art["steps_per_s"], "seconds": art["seconds"],
+          "peak_bytes": art["peak_bytes"], "guard": art["guard"],
+          "params": art["params"], "skipped": skipped,
+          "loss_first_window": first, "loss_last_window": last,
+          "launches_a_step": steps[0]["launches"],
+          "launches": art["launches"], "profiled_step": profiled,
+          "checks": checks, "curve": art["curve"]})
+    if not all(checks.values()):
+        fail(f"overfit_short: {checks}")
+    shutil.rmtree(root)
+    return art["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3895,6 +4014,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_ddp_counts = cli_ddp_phase(torch, repo, dev)
+
+    # ---- 31. a short slice of the flagship overfit recipe ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    overfit_counts = overfit_short_phase(torch, repo, dev)
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
 
     # ---- kernels line, card, result -----------------------------------
@@ -3921,7 +4045,8 @@ def main() -> int:
              "v1_distill_2_steps": v1["distill"], **v1_cli_counts,
              "vggt_10view_request": v10["serve"],
              "vggt_10view_train_step": v10["train"], **par["paths"],
-             **cli_ddp_counts}
+             **cli_ddp_counts,
+             f"overfit_short_{OVERFIT_STEPS}_steps": overfit_counts}
 
     def by_path(name):
         return {path: c.get(name, 0) for path, c in paths.items()}

@@ -601,9 +601,8 @@ def restore_state(state: TrainState, ckpt: dict) -> TrainState:
     return state
 
 
-def restore_latest_checkpoint(ckpt_dir: Path, state: TrainState):
-    """Resume support: restore the newest `step_*` checkpoint into
-    `state`.  Returns (state, next_step) or None when there is none."""
+def latest_checkpoint(ckpt_dir: Path) -> Path | None:
+    """The newest `step_*` checkpoint directory under `ckpt_dir`, or None."""
     ckpt_dir = Path(ckpt_dir)
     if not ckpt_dir.exists():
         return None
@@ -614,9 +613,15 @@ def restore_latest_checkpoint(ckpt_dir: Path, state: TrainState):
                 steps.append((int(p.name.split("_", 1)[1]), p))
             except ValueError:
                 continue
-    if not steps:
+    return max(steps)[1] if steps else None
+
+
+def restore_latest_checkpoint(ckpt_dir: Path, state: TrainState):
+    """Resume support: restore the newest `step_*` checkpoint into
+    `state`.  Returns (state, next_step) or None when there is none."""
+    latest = latest_checkpoint(ckpt_dir)
+    if latest is None:
         return None
-    _, latest = max(steps)
     state = restore_state(state, load_checkpoint(latest))
     return state, int(state.step)
 

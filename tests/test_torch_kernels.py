@@ -965,7 +965,8 @@ def test_port_imports_without_jax():
                      "spfsplatv2_tpu_torch.utils.drawing",
                      "spfsplatv2_tpu_torch.utils.logger",
                      "spfsplatv2_tpu_torch.utils.profiling",
-                     "spfsplatv2_tpu_torch.data.convert_dl3dv"):
+                     "spfsplatv2_tpu_torch.data.convert_dl3dv",
+                     "spfsplatv2_tpu_torch.overfit"):
             assert name in sys.modules, name
         print("imported", len(sys.modules))
     """)
