@@ -7,12 +7,17 @@
 Builds the encoder (the flagship, or the one named by the third
 argument: "spfsplatv2l" is the VGGT-1B family at the
 experiments/spfsplatv2-l presets' widths) from a seeded random init (as
-chip_smoke.py does), runs the path once to warm up, then once under
-`torch.profiler`, and prints one JSON line: the wall time, the device's
-busy time and share (the sum of kernel times over the wall time; one
-stream, so kernels do not overlap), the number of kernel launches, the
-peak device memory, the kernels that took the most device time, and
-K5's flash-attention kernels apart.  The paths:
+chip_smoke.py does), runs the path once to warm up, once timed on the
+host clock, then once under `torch.profiler` (`utils/profiling.trace`),
+which writes the Chrome trace to
+`outputs/profile/<path>_<size>_<encoder>/trace.json`: the program's
+`spfsplat:` spans over the card's kernels, in Perfetto.  Prints one JSON
+line: the untimed and the profiled wall time, the device's busy time
+(the union of the card's kernel, memcpy and memset intervals in the
+trace) and its share of the untraced wall time (the profiler stretches
+host time), the number of device operations, the peak device memory,
+the kernels that took the most device time, and K5's flash-attention
+kernels apart.  The paths:
   * serving: one request (2 context views + 1 target);
   * align: one request with test-time pose alignment, 10 steps;
   * train: one `make_train_step` step at the preset's batch (seeded
@@ -32,14 +37,16 @@ import json
 import sys
 import time
 
+from pathlib import Path
+
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from spfsplatv2_tpu_torch.evaluation.evaluator import EvalConfig, evaluate_example
 from spfsplatv2_tpu_torch.models import EncoderSelectorConfig, get_encoder
 from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, LONG_CONTEXT_DECODER
 from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
+from spfsplatv2_tpu_torch.utils.profiling import busy_us, device_ops, trace
 
 ALIGN_STEPS = 10
 # Image size -> (decoder config, train batch, microbatch).
@@ -123,18 +130,23 @@ def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
                           device=dev)
     run = _runner(path, encoder, hw, seed, dev)
     run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    log_dir = Path("outputs/profile") / f"{path}_{hw}_{encoder_name}"
+    with trace(log_dir):
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    ops = device_ops(log_dir / "trace.json")
+    busy_ms = busy_us(ops) / 1e3
     by_name: dict[str, list[float]] = {}
-    for e in kernels:
-        by_name.setdefault(e.name[:100], []).append(e.device_time_total / 1e3)
+    for s, e, name in ops:
+        by_name.setdefault(name[:100], []).append((e - s) / 1e3)
     top = sorted(((sum(v), len(v), k) for k, v in by_name.items()),
                  reverse=True)[:15]
     # K5's kernels by name, whether or not they make the top 15.
@@ -146,12 +158,14 @@ def main(path: str = "serving", hw: int = 256, encoder_name: str = "spfsplatv2",
         "compute_dtype": compute_dtype,
         "device": torch.cuda.get_device_name(0),
         "peak_bytes": torch.cuda.max_memory_allocated(dev),
-        "wall_ms_under_profiler": wall_ms,
+        "wall_ms": wall_ms,
+        "wall_ms_under_profiler": traced_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
-        "kernel_launches": len(kernels),
+        "device_ops": len(ops),
         "top_kernels_ms_count_name": top,
         "flash_kernels_ms_count": flash,
+        "trace": str(log_dir / "trace.json"),
     }
     print(json.dumps(result), flush=True)
     return result

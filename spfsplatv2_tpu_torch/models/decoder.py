@@ -17,6 +17,7 @@ import torch
 
 from spfsplatv2_tpu_torch.gaussians import Gaussians
 from spfsplatv2_tpu_torch.ops.rasterizer import RasterizerConfig, render
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -54,6 +55,13 @@ def decode_splatting(
     image_shape: tuple[int, int],
     cfg: DecoderConfig = DecoderConfig(),
 ) -> DecoderOutput:
+    with span("decoder.render"):
+        return _decode_splatting(gaussians, extrinsics, intrinsics, near, far,
+                                 image_shape, cfg)
+
+
+def _decode_splatting(gaussians, extrinsics, intrinsics, near, far,
+                      image_shape, cfg: DecoderConfig) -> DecoderOutput:
     b, v = extrinsics.shape[:2]
     bg = torch.tensor(cfg.background_color, dtype=extrinsics.dtype,
                       device=extrinsics.device).expand(v, 3)

@@ -40,6 +40,7 @@ from spfsplatv2_tpu_torch.models.heads.dpt import DPTGSHead, DPTHead
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHead, PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 def dpt_hooks(dec_depth: int) -> tuple[int, ...]:
@@ -175,38 +176,45 @@ class SPFSplatV2Encoder(nn.Module):
         v_tgt = 0 if target_images is None else target_images.shape[1]
         dev = context_images.device
 
-        images, intrinsics = context_images, context_intrinsics
-        if v_tgt:
-            images = torch.cat([context_images, target_images], dim=1)
-            intrinsics = torch.cat([context_intrinsics, target_intrinsics], dim=1)
-        images = (images - cfg.input_mean) / cfg.input_std
+        with span("encoder.backbone"):
+            images, intrinsics = context_images, context_intrinsics
+            if v_tgt:
+                images = torch.cat([context_images, target_images], dim=1)
+                intrinsics = torch.cat([context_intrinsics, target_intrinsics],
+                                       dim=1)
+            images = (images - cfg.input_mean) / cfg.input_std
 
-        view_valid = None
-        if context_valid is not None or target_valid is not None:
-            cv = (torch.ones((v_cxt,), device=dev) if context_valid is None
-                  else context_valid.to(torch.float32))
-            tv = (torch.ones((v_tgt,), device=dev) if target_valid is None
-                  else target_valid.to(torch.float32))
-            view_valid = torch.cat([cv, tv]) if v_tgt else cv
+            view_valid = None
+            if context_valid is not None or target_valid is not None:
+                cv = (torch.ones((v_cxt,), device=dev) if context_valid is None
+                      else context_valid.to(torch.float32))
+                tv = (torch.ones((v_tgt,), device=dev) if target_valid is None
+                      else target_valid.to(torch.float32))
+                view_valid = torch.cat([cv, tv]) if v_tgt else cv
 
-        out = self.backbone(images, intrinsics, num_target=v_tgt,
-                            view_valid=view_valid)
-        dec_feat, pose_feat, grid = out["dec_feat"], out["pose_feat"], out["grid"]
-        ctx_feat = [t[:, :v_cxt] for t in dec_feat]
+            out = self.backbone(images, intrinsics, num_target=v_tgt,
+                                view_valid=view_valid)
+        with span("encoder.heads"):
+            dec_feat, pose_feat, grid = (out["dec_feat"], out["pose_feat"],
+                                         out["grid"])
+            ctx_feat = [t[:, :v_cxt] for t in dec_feat]
+            raw_pts = self._run_dual_heads("downstream_head", ctx_feat, grid,
+                                           cfg.remat_heads)
+            # (b, v_cxt, h, w, 3)
+            pts3d = pts3d_postprocess(raw_pts, mode="exp")
+            raw_gs = self._run_dual_heads("gaussian_param_head", ctx_feat,
+                                          grid, cfg.remat_heads,
+                                          extra=images[:, :v_cxt])
 
-        raw_pts = self._run_dual_heads("downstream_head", ctx_feat, grid,
-                                       cfg.remat_heads)
-        pts3d = pts3d_postprocess(raw_pts, mode="exp")   # (b, v_cxt, h, w, 3)
-        raw_gs = self._run_dual_heads("gaussian_param_head", ctx_feat, grid,
-                                      cfg.remat_heads, extra=images[:, :v_cxt])
-
-        extrinsics_c = extrinsics_cwt = None
-        if cfg.estimating_pose:
-            poses = self._process_pose(self._pose_pass(pose_feat[-1]), v_cxt)
-            extrinsics_c = poses[:, :v_cxt]
-            extrinsics_cwt = poses
-        return self._assemble(pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
-                              global_step, v_cxt + v_tgt, context_valid)
+            extrinsics_c = extrinsics_cwt = None
+            if cfg.estimating_pose:
+                poses = self._process_pose(self._pose_pass(pose_feat[-1]),
+                                           v_cxt)
+                extrinsics_c = poses[:, :v_cxt]
+                extrinsics_cwt = poses
+        with span("encoder.gaussians"):
+            return self._assemble(pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
+                                  global_step, v_cxt + v_tgt, context_valid)
 
     def _pose_pass(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (b, v, n, c), pooled over n by the heads: head 1 on

@@ -29,6 +29,7 @@ from spfsplatv2_tpu_torch.models.encoder import (
 )
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -78,32 +79,38 @@ class SPFSplatEncoder(SPFSplatV2Encoder):
         cfg = self.cfg
         v_cxt = context_images.shape[1]
         v_tgt = 0 if target_images is None else target_images.shape[1]
-        images, intrinsics = context_images, context_intrinsics
-        if v_tgt:
-            images = torch.cat([context_images, target_images], dim=1)
-            intrinsics = torch.cat([context_intrinsics, target_intrinsics], dim=1)
-        images = (images - cfg.input_mean) / cfg.input_std
+        with span("encoder.backbone"):
+            images, intrinsics = context_images, context_intrinsics
+            if v_tgt:
+                images = torch.cat([context_images, target_images], dim=1)
+                intrinsics = torch.cat([context_intrinsics, target_intrinsics],
+                                       dim=1)
+            images = (images - cfg.input_mean) / cfg.input_std
 
-        out = self.backbone(images, intrinsics, num_target=v_tgt)
-        dec_feat, grid = out["dec_feat"], out["grid"]
-        # As in JAX, v1's heads keep their activations (no recompute).
-        raw_pts = self._run_dual_heads("downstream_head", dec_feat, grid,
-                                       remat=False)
-        pts3d = pts3d_postprocess(raw_pts, mode="exp")   # (b, v_cxt, h, w, 3)
-        raw_gs = self._run_dual_heads("gaussian_param_head", dec_feat, grid,
-                                      remat=False, extra=images[:, :v_cxt])
+            out = self.backbone(images, intrinsics, num_target=v_tgt)
+        with span("encoder.heads"):
+            dec_feat, grid = out["dec_feat"], out["grid"]
+            # As in JAX, v1's heads keep their activations (no recompute).
+            raw_pts = self._run_dual_heads("downstream_head", dec_feat, grid,
+                                           remat=False)
+            # (b, v_cxt, h, w, 3)
+            pts3d = pts3d_postprocess(raw_pts, mode="exp")
+            raw_gs = self._run_dual_heads("gaussian_param_head", dec_feat,
+                                          grid, remat=False,
+                                          extra=images[:, :v_cxt])
 
-        extrinsics_c = extrinsics_cwt = None
-        if cfg.estimating_pose:
-            def poses(feats):
-                tokens = torch.cat([feats[0], feats[-1]], dim=-1)
-                return self._process_pose(self._pose_pass(tokens), v_cxt)
+            extrinsics_c = extrinsics_cwt = None
+            if cfg.estimating_pose:
+                def poses(feats):
+                    tokens = torch.cat([feats[0], feats[-1]], dim=-1)
+                    return self._process_pose(self._pose_pass(tokens), v_cxt)
 
-            extrinsics_c = extrinsics_cwt = poses(dec_feat)
-            if out["dec_feat_w_tgt"] is not None:
-                extrinsics_cwt = poses(out["dec_feat_w_tgt"])
-        result = self._assemble(pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
-                                global_step, v_cxt + v_tgt)
+                extrinsics_c = extrinsics_cwt = poses(dec_feat)
+                if out["dec_feat_w_tgt"] is not None:
+                    extrinsics_cwt = poses(out["dec_feat_w_tgt"])
+        with span("encoder.gaussians"):
+            result = self._assemble(pts3d, raw_gs, extrinsics_c,
+                                    extrinsics_cwt, global_step, v_cxt + v_tgt)
         result["variant"] = "spfsplat"
         return result
 

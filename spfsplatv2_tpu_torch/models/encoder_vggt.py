@@ -44,6 +44,7 @@ from spfsplatv2_tpu_torch.models.vggt.camera_head import (
 from spfsplatv2_tpu_torch.models.vggt.dpt_head import VGGTDPTHead
 from spfsplatv2_tpu_torch.models.vggt.layers import LayerScale
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -124,58 +125,62 @@ class SPFSplatV2LEncoder(nn.Module):
         v_tgt = 0 if target_images is None else target_images.shape[1]
         dev = context_images.device
 
-        images, intrinsics = context_images, context_intrinsics
-        if v_tgt:
-            images = torch.cat([context_images, target_images], dim=1)
-            intrinsics = torch.cat([context_intrinsics, target_intrinsics], dim=1)
+        with span("encoder.backbone"):
+            images, intrinsics = context_images, context_intrinsics
+            if v_tgt:
+                images = torch.cat([context_images, target_images], dim=1)
+                intrinsics = torch.cat([context_intrinsics, target_intrinsics],
+                                       dim=1)
 
-        view_valid = None
-        if context_valid is not None or target_valid is not None:
-            cv = (torch.ones((v_cxt,), device=dev) if context_valid is None
-                  else context_valid.to(torch.float32))
-            tv = (torch.ones((v_tgt,), device=dev) if target_valid is None
-                  else target_valid.to(torch.float32))
-            view_valid = torch.cat([cv, tv]) if v_tgt else cv
+            view_valid = None
+            if context_valid is not None or target_valid is not None:
+                cv = (torch.ones((v_cxt,), device=dev) if context_valid is None
+                      else context_valid.to(torch.float32))
+                tv = (torch.ones((v_tgt,), device=dev) if target_valid is None
+                      else target_valid.to(torch.float32))
+                view_valid = torch.cat([cv, tv]) if v_tgt else cv
 
-        agg = self.aggregator(images, intrinsics, num_target=v_tgt,
-                              view_valid=view_valid)
-        tokens, patch_start, grid = agg["tokens"], agg["patch_start"], agg["grid"]
+            agg = self.aggregator(images, intrinsics, num_target=v_tgt,
+                                  view_valid=view_valid)
+        with span("encoder.heads"):
+            tokens, patch_start, grid = (agg["tokens"], agg["patch_start"],
+                                         agg["grid"])
+            extrinsics_c = extrinsics_cwt = None
+            if cfg.estimating_pose:
+                pose_enc = self.camera_head(tokens[-1][:, :, 0],
+                                            view_valid=view_valid)
+                poses = se3.inverse_se3(pose_encoding_to_w2c(pose_enc))
+                poses = self._normalize_poses(poses, v_cxt)
+                extrinsics_c = poses[:, :v_cxt]
+                extrinsics_cwt = poses
 
-        extrinsics_c = extrinsics_cwt = None
-        if cfg.estimating_pose:
-            pose_enc = self.camera_head(tokens[-1][:, :, 0],
-                                        view_valid=view_valid)
-            poses = se3.inverse_se3(pose_encoding_to_w2c(pose_enc))
-            poses = self._normalize_poses(poses, v_cxt)
-            extrinsics_c = poses[:, :v_cxt]
-            extrinsics_cwt = poses
+            ctx_tokens = [t[:, :v_cxt] for t in tokens]
+            pts3d, conf = self.point_head(ctx_tokens, grid, patch_start)
+            gs_dim = raw_gaussian_channels(cfg.sh_degree)
+            raw_gs = self.gaussian_param_head(ctx_tokens, grid, patch_start,
+                                              images=context_images)
 
-        ctx_tokens = [t[:, :v_cxt] for t in tokens]
-        pts3d, conf = self.point_head(ctx_tokens, grid, patch_start)
-        gs_dim = raw_gaussian_channels(cfg.sh_degree)
-        raw_gs = self.gaussian_param_head(ctx_tokens, grid, patch_start,
-                                          images=context_images)
+        with span("encoder.gaussians"):
+            densities = torch.sigmoid(raw_gs[..., 0])
+            om = cfg.opacity_mapping
+            opacities = map_pdf_to_opacity(densities, global_step, om.initial,
+                                           om.final, om.warm_up)
+            if context_valid is not None:
+                opacities = opacities * context_valid.to(opacities.dtype)[
+                    None, :, None, None
+                ]
+            gaussians = unified_gaussian_adapter(
+                pts3d.reshape(b, v_cxt, h * w, 3),
+                opacities.reshape(b, v_cxt, h * w),
+                raw_gs[..., 1:].reshape(b, v_cxt, h * w, gs_dim - 1),
+                sh_degree=cfg.sh_degree,
+            ).flatten_views()
 
-        densities = torch.sigmoid(raw_gs[..., 0])
-        om = cfg.opacity_mapping
-        opacities = map_pdf_to_opacity(densities, global_step, om.initial,
-                                       om.final, om.warm_up)
-        if context_valid is not None:
-            opacities = opacities * context_valid.to(opacities.dtype)[
-                None, :, None, None
-            ]
-        gaussians = unified_gaussian_adapter(
-            pts3d.reshape(b, v_cxt, h * w, 3),
-            opacities.reshape(b, v_cxt, h * w),
-            raw_gs[..., 1:].reshape(b, v_cxt, h * w, gs_dim - 1),
-            sh_degree=cfg.sh_degree,
-        ).flatten_views()
-
-        depths = None
-        if extrinsics_c is not None:
-            depths = se3.depth_from_pose(
-                pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
-            ).reshape(b, v_cxt, h, w)
+            depths = None
+            if extrinsics_c is not None:
+                depths = se3.depth_from_pose(
+                    pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
+                ).reshape(b, v_cxt, h, w)
         return {
             "gaussians": gaussians,
             "extrinsics_c": extrinsics_c,

@@ -30,6 +30,7 @@ from spfsplatv2_tpu_torch.ops.raster_tiled import (
     bin_gaussians_prefix,
     composite_tiles,
 )
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -76,36 +77,43 @@ def entry_budget(cfg: RasterizerConfig, g: int) -> int:
 def _render_one(means, covariances, harmonics, opacities, c2w, intrinsics,
                 background, image_shape, sh_degree, cfg: RasterizerConfig,
                 ewa_reference_shape=None):
-    proj = project_gaussians(
-        means, covariances, harmonics, opacities, c2w, intrinsics,
-        image_shape, sh_degree=sh_degree, use_sh=cfg.use_sh,
-        ewa_reference_shape=ewa_reference_shape,
-    )
+    with span("render.project"):
+        proj = project_gaussians(
+            means, covariances, harmonics, opacities, c2w, intrinsics,
+            image_shape, sh_degree=sh_degree, use_sh=cfg.use_sh,
+            ewa_reference_shape=ewa_reference_shape,
+        )
     dropped = torch.zeros((), dtype=torch.int32, device=means.device)
     if cfg.backend == "reference":
-        color, depth, alpha = composite_reference(proj, image_shape, background)
+        with span("render.composite"):
+            color, depth, alpha = composite_reference(proj, image_shape,
+                                                      background)
     elif cfg.backend == "tiled":
-        bins = bin_gaussians(proj, image_shape, cfg.max_tiles_per_gaussian)
-        diff = bins.tile_starts[1:] - bins.tile_starts[:-1]
-        dropped = torch.clamp(diff - cfg.max_per_tile, min=0).sum().to(
-            torch.int32)
-        color, depth, alpha = composite_tiles(
-            proj, bins, image_shape, background,
-            max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
-        )
+        with span("render.bin"):
+            bins = bin_gaussians(proj, image_shape, cfg.max_tiles_per_gaussian)
+            diff = bins.tile_starts[1:] - bins.tile_starts[:-1]
+            dropped = torch.clamp(diff - cfg.max_per_tile, min=0).sum().to(
+                torch.int32)
+        with span("render.composite"):
+            color, depth, alpha = composite_tiles(
+                proj, bins, image_shape, background,
+                max_per_tile=cfg.max_per_tile, chunk=cfg.chunk,
+            )
     elif cfg.backend in ("auto", "prefix"):
-        bins = bin_gaussians_prefix(
-            proj, image_shape, cfg.max_tiles_per_gaussian, cfg.chunk,
-            entry_budget(cfg, means.shape[0]),
-            base_tiles_per_gaussian=cfg.base_tiles_per_gaussian,
-            big_pool_factor=cfg.big_pool_factor,
-            depth_key=cfg.depth_key,
-            key_shape=ewa_reference_shape,
-        )
+        with span("render.bin"):
+            bins = bin_gaussians_prefix(
+                proj, image_shape, cfg.max_tiles_per_gaussian, cfg.chunk,
+                entry_budget(cfg, means.shape[0]),
+                base_tiles_per_gaussian=cfg.base_tiles_per_gaussian,
+                big_pool_factor=cfg.big_pool_factor,
+                depth_key=cfg.depth_key,
+                key_shape=ewa_reference_shape,
+            )
         dropped = bins.n_overflow
-        color, depth, alpha = composite_prefix(
-            proj, bins, image_shape, background, chunk=cfg.chunk,
-        )
+        with span("render.composite"):
+            color, depth, alpha = composite_prefix(
+                proj, bins, image_shape, background, chunk=cfg.chunk,
+            )
     else:
         raise ValueError(f"unknown rasterizer backend {cfg.backend!r}")
     return color, depth, alpha, dropped

@@ -25,6 +25,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from spfsplatv2_tpu_torch.utils.profiling import span
+
 
 @dataclass(frozen=True)
 class OptimizerConfig:
@@ -140,6 +142,10 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> bool:
         """Apply one update or skip it; returns whether it was applied."""
+        with span("train.optimizer"):
+            return self._step()
+
+    def _step(self) -> bool:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

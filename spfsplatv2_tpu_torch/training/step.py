@@ -31,6 +31,7 @@ from spfsplatv2_tpu_torch.losses.reproj import ReprojConfig, reproj_loss
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig, decode_splatting
 from spfsplatv2_tpu_torch.parallel.mesh import CollectiveAudit
 from spfsplatv2_tpu_torch.training.optim import Optimizer
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -130,58 +131,65 @@ def compute_losses(
     metrics = {}
     if dec_out.dropped_entries is not None:
         metrics["raster/dropped_entries"] = torch.sum(dec_out.dropped_entries)
-    if img_w is None:
-        total = mse_loss(pred_flat, gt_flat, loss_cfg.mse_weight)
-    else:
-        per_img = torch.mean((pred_flat - gt_flat) ** 2, dim=(1, 2, 3))
-        total = loss_cfg.mse_weight * _weighted_mean(per_img, img_w)
+    with span("loss.mse"):
+        if img_w is None:
+            total = mse_loss(pred_flat, gt_flat, loss_cfg.mse_weight)
+        else:
+            per_img = torch.mean((pred_flat - gt_flat) ** 2, dim=(1, 2, 3))
+            total = loss_cfg.mse_weight * _weighted_mean(per_img, img_w)
     metrics["loss/mse"] = total
 
     if loss_cfg.use_lpips and lpips is not None:
-        if img_w is None:
-            lp = lpips_loss(lpips, pred_flat, gt_flat, loss_cfg.lpips_weight)
-        else:
-            lp = loss_cfg.lpips_weight * _weighted_mean(
-                lpips_distances(lpips, pred_flat, gt_flat), img_w)
-        if global_step < loss_cfg.lpips_apply_after_step:
-            lp = torch.zeros_like(lp)
+        with span("loss.lpips"):
+            if img_w is None:
+                lp = lpips_loss(lpips, pred_flat, gt_flat,
+                                loss_cfg.lpips_weight)
+            else:
+                lp = loss_cfg.lpips_weight * _weighted_mean(
+                    lpips_distances(lpips, pred_flat, gt_flat), img_w)
+            if global_step < loss_cfg.lpips_apply_after_step:
+                lp = torch.zeros_like(lp)
         metrics["loss/lpips"] = lp
         total = total + lp
 
     # Reprojection consistency of the predicted context poses.
     if enc_out["extrinsics_cwt"] is not None:
-        pts3d = enc_out["pts3d"]
-        c1 = reproj_loss(pts3d[:, 0], context_extrinsics[:, 0],
-                         ctx["intrinsics"][:, 0], global_step, loss_cfg.reproj)
-        n_kept = (float(v_cxt) if ctx_valid is None
-                  else torch.clamp(ctx_valid.to(torch.float32).sum(), min=1.0))
-        c2 = 0.0
-        for i in range(1, v_cxt):
-            term = reproj_loss(pts3d[:, i], context_extrinsics[:, i],
-                               ctx["intrinsics"][:, i], global_step,
-                               loss_cfg.reproj)
-            if ctx_valid is not None:
-                term = term * ctx_valid[i].to(term.dtype)
-            c2 = c2 + term
-        c2 = c2 / n_kept
-        metrics["loss/reproj_c1"] = c1
-        metrics["loss/reproj_c2"] = c2
-        total = total + c1 + c2
-        # SPFSplat v1: a pose-only term (points detached) on the poses of
-        # the context-only decoder pass.
-        if (enc_out.get("variant") == "spfsplat"
-                and enc_out.get("extrinsics_c") is not None):
-            c2_only = 0.0
+        with span("loss.reproj"):
+            pts3d = enc_out["pts3d"]
+            c1 = reproj_loss(pts3d[:, 0], context_extrinsics[:, 0],
+                             ctx["intrinsics"][:, 0], global_step,
+                             loss_cfg.reproj)
+            n_kept = (float(v_cxt) if ctx_valid is None
+                      else torch.clamp(ctx_valid.to(torch.float32).sum(),
+                                       min=1.0))
+            c2 = 0.0
             for i in range(1, v_cxt):
-                term = reproj_loss(pts3d[:, i], enc_out["extrinsics_c"][:, i],
+                term = reproj_loss(pts3d[:, i], context_extrinsics[:, i],
                                    ctx["intrinsics"][:, i], global_step,
-                                   loss_cfg.reproj, detach_pts3d=True)
+                                   loss_cfg.reproj)
                 if ctx_valid is not None:
                     term = term * ctx_valid[i].to(term.dtype)
-                c2_only = c2_only + term
-            c2_only = c2_only / n_kept
-            metrics["loss/reproj_c2_only"] = c2_only
-            total = total + c2_only
+                c2 = c2 + term
+            c2 = c2 / n_kept
+            metrics["loss/reproj_c1"] = c1
+            metrics["loss/reproj_c2"] = c2
+            total = total + c1 + c2
+            # SPFSplat v1: a pose-only term (points detached) on the poses
+            # of the context-only decoder pass.
+            if (enc_out.get("variant") == "spfsplat"
+                    and enc_out.get("extrinsics_c") is not None):
+                c2_only = 0.0
+                for i in range(1, v_cxt):
+                    term = reproj_loss(pts3d[:, i],
+                                       enc_out["extrinsics_c"][:, i],
+                                       ctx["intrinsics"][:, i], global_step,
+                                       loss_cfg.reproj, detach_pts3d=True)
+                    if ctx_valid is not None:
+                        term = term * ctx_valid[i].to(term.dtype)
+                    c2_only = c2_only + term
+                c2_only = c2_only / n_kept
+                metrics["loss/reproj_c2_only"] = c2_only
+                total = total + c2_only
 
     # Pointmap distillation against the frozen teacher, which keeps no
     # activations.
@@ -321,10 +329,12 @@ def make_train_step(
             local = (ddp.no_sync() if ddp is not None and i < n - 1
                      else contextlib.nullcontext())
             with local:
-                loss, metrics = compute_losses(
-                    model, mb, state.step, image_shape, decoder_cfg,
-                    loss_cfg, lpips, training_context, distiller)
-                (loss / n).backward()
+                with span("train.forward"):
+                    loss, metrics = compute_losses(
+                        model, mb, state.step, image_shape, decoder_cfg,
+                        loss_cfg, lpips, training_context, distiller)
+                with span("train.backward"):
+                    (loss / n).backward()
             for k, m in metrics.items():
                 sums[k] = sums.get(k, 0) + m
         metrics = {k: (float(m) / n if m.is_floating_point() else int(m))

@@ -63,6 +63,12 @@ ALLOWED = {
         "XLA's compiled memory analysis; the port measures a probe step"),
     "training/step.py:device_hbm_budget_gb": (
         "training/loop.py:device_memory_gb", "the card's memory"),
+    "utils/profiling.py:StepTimer": (
+        None, "nothing reads a rolling step mean; the benchmark's window "
+              "and the program's spans replace it"),
+    "utils/profiling.py:StepTimer.tick": (None, "as above"),
+    "utils/profiling.py:StepTimer.mean": (None, "as above"),
+    "utils/profiling.py:StepTimer.steps_per_s": (None, "as above"),
     "utils/ckpt_convert.py:convert_croco_block": (
         "utils/ckpt_convert.py:_croco_block",
         "converts to a torch state dict by name, not a flax tree"),

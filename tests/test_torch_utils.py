@@ -3,8 +3,8 @@
   * `utils/drawing.py`: points, lines and camera frustums, torch against
     JAX's numpy on the same seeded inputs, within 1e-5;
   * `utils/logger.py`: the JSONL records, the PNG and the GIF;
-  * `utils/profiling.py`: `StepTimer`, and `trace` writing a Chrome
-    trace;
+  * `utils/profiling.py`: `trace` writing a Chrome trace, and the
+    card's busy time read from one (`device_ops`, `busy_us`);
   * `data/convert_dl3dv.py`: both converters on the same seeded
     nerfstudio-layout scenes (one with fewer than 10 frames, one without
     `transforms.json`): the same index and image bytes, camera rows
@@ -12,7 +12,6 @@
 """
 
 import json
-import time
 
 import numpy as np
 import torch
@@ -97,22 +96,30 @@ def test_local_logger_writes_records_images_and_videos(tmp_path):
         assert gif.n_frames == 2
 
 
-def test_step_timer():
-    timer = profiling.StepTimer(window=2)
-    assert timer.tick() is None and timer.mean is None
-    for _ in range(3):
-        time.sleep(0.01)
-        assert timer.tick() >= 0.01
-    assert len(timer._times) == 2
-    assert timer.mean >= 0.01 and 0 < timer.steps_per_s <= 100
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "profile") as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof is not None
     trace = json.loads((tmp_path / "profile" / "trace.json").read_text())
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
+
+
+def test_busy_time_is_the_union_of_device_operations(tmp_path):
+    """Kernels, memcpys and memsets count once where they overlap; the
+    card's annotation rows and host events do not count."""
+    ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name,
+                                     "ts": ts, "dur": dur}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        ev("kernel", "k1", 10.0, 5.0), ev("kernel", "k2", 12.0, 5.0),
+        ev("gpu_memcpy", "Memcpy HtoD", 20.0, 2.0),
+        ev("gpu_memset", "Memset", 30.0, 1.0),
+        ev("gpu_user_annotation", "Optimizer.step#AdamW.step", 0.0, 40.0),
+        ev("cpu_op", "aten::mm", 0.0, 50.0),
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 5.0}]}))
+    ops = profiling.device_ops(path)
+    assert [n for _, _, n in ops] == ["k1", "k2", "Memcpy HtoD", "Memset"]
+    assert profiling.busy_us(ops) == 10.0
 
 
 def _nerfstudio_scene(root, name, n_frames, rng, with_transforms=True):
