@@ -531,6 +531,14 @@ def profile_calls(torch, fn, calls: int) -> tuple:
             {name: count / calls for name, count in names.items()})
 
 
+def replayed_kernels(torch, fn, names: tuple) -> dict:
+    """Device launches of each kernel in `names` (a part of its name) in
+    one call of `fn`, from torch.profiler's trace: a CUDA graph's replay
+    calls no kernel wrapper, so only the trace sees the kernels it runs."""
+    _, per_call = profile_calls(torch, fn, 1)
+    return {n: sum(c for op, c in per_call.items() if n in op) for n in names}
+
+
 def pixel_aligned_scene(torch, views: int, hw: int, gen, dev, d_sh=25,
                         opacity=(0.05, 0.95)):
     """`views` x hw^2 Gaussians unprojected from per-view pixel grids at
@@ -1301,6 +1309,9 @@ def encoder_pass_capturing_k5(torch, attention, encoder, ex) -> tuple:
         return flash_inner(q_, k_, v_, s_)
 
     attention.flash_attention = capture
+    # In `train()` the forward runs eagerly (a graph replay calls no
+    # Python), with the same arithmetic: the model has no dropout.
+    encoder.train()
     try:
         with torch.no_grad():
             c, t = ex["context"], ex["target"]
@@ -1308,6 +1319,7 @@ def encoder_pass_capturing_k5(torch, attention, encoder, ex) -> tuple:
                           t["image"][None], t["intrinsics"][None])
     finally:
         attention.flash_attention = flash_inner
+        encoder.eval()
     return out, captured
 
 
@@ -1381,12 +1393,20 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
     resident = torch.cuda.memory_allocated(dev)
     results, serve_counts = serve_requests(torch, dev, encoder, requests, size,
                                            dec_cfg, eval_cfg)
+    # The warm-up request captured the encoder's graph: each request
+    # replays it, and K5 runs inside the replay, where only the device
+    # trace sees it.
     want = {k: 0 for k in serve_counts}
-    want.update(flash_f32_forward=K5_PER_PASS * F32_REQUESTS,
-                flash_f32_split_forward=K5_PER_PASS * F32_REQUESTS,
+    want.update(encoder_graph_replay=F32_REQUESTS,
                 composite_forward=F32_REQUESTS, cumsum_1d=2 * F32_REQUESTS)
     if serve_counts != want:
         fail(f"serving_1024_f32 launch counts {serve_counts}, expected {want}")
+    replayed = replayed_kernels(torch, lambda: evaluate_example(
+        encoder, requests[0], size, dec_cfg, eval_cfg, device=dev),
+        ("flash_f32_forward_kernel", "flash_f32_split_kernel"))
+    if set(replayed.values()) != {K5_PER_PASS}:
+        fail(f"serving_1024_f32: a replayed request ran {replayed} K5 "
+             f"kernels, not {K5_PER_PASS} each")
     for i, res in enumerate(results):
         vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"]]
         if tuple(res["rendered"].shape) != (1, *size, 3) or not bool(
@@ -1417,7 +1437,7 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
         torch, decode_splatting, cams_args, out["gaussians"], "float32 1024^2")
     emit({"phase": "serving_1024_f32", "requests": F32_REQUESTS,
           "compute_dtype": cfg.backbone.compute_dtype, "init_s": init_s,
-          "launches": serve_counts,
+          "launches": serve_counts, "replayed_k5_a_request": replayed,
           "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3 for r in results],
           "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3 for r in results],
           "peak_bytes": [r["peak_bytes"] for r in results],
@@ -2168,9 +2188,12 @@ def demo_phase(torch, repo: Path, dev) -> dict:
     counts = dict(cuda_lib.launch_counts)
     peak = torch.cuda.max_memory_allocated(dev)
 
-    # Two encoder passes (the demo's, then the video's on the context),
-    # 48 K5 forward launches each; one K1 and two K3 a video frame.
-    on_path = {"flash_forward": 2 * K5_PER_PASS,
+    # Two encoder passes of one signature (the demo's, then the video's on
+    # the context): the first runs eagerly and is captured, 48 K5 forward
+    # launches each, and the second replays the graph; one K1 and two K3 a
+    # video frame.
+    on_path = {"flash_forward": 2 * K5_PER_PASS, "encoder_graph_eager": 1,
+               "encoder_graph_replay": 1,
                "composite_forward": DEMO_FRAMES, "cumsum_1d": 2 * DEMO_FRAMES}
     off_path = {k: v for k, v in counts.items() if k not in on_path}
     if {k: counts.get(k, 0) for k in on_path} != on_path or any(
@@ -2413,8 +2436,11 @@ def cli_phases(torch, repo: Path, dev) -> dict:
         visualization.save_image, cli._load_encoder = real_save_image, real_load
     test_counts = dict(cuda_lib.launch_counts)
     targets = sum(len(e["target"]) for e in CLI_INDEX.values())
+    # One encoder call a target, all of one signature: the first captures
+    # the graph, the others replay it.
     want = {k: 0 for k in test_counts}
-    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    want.update(composite_forward=targets, cumsum_1d=2 * targets,
+                encoder_graph_eager=1, encoder_graph_replay=targets - 1)
     artifacts = ["scores_all.json", "scores_all_avg.json",
                  "scores_sub_avg.json", "benchmark.json", "peak_memory.json"]
     missing = [a for a in artifacts if not (test_dir / a).exists()]
@@ -2452,9 +2478,14 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     rc = cli.main(argv + ["mode=eval_pose", f"checkpointing.load={ckpt_path}"])
     pose_counts = dict(cuda_lib.launch_counts)
     pose_file = test_dir / "pose_eval.json"
-    if rc != 0 or not pose_file.exists() or any(pose_counts.values()):
-        fail(f"cli_eval_pose: rc {rc}, launches {pose_counts}")
-    emit({"phase": "cli_eval_pose", "summary": json.loads(pose_file.read_text()),
+    # One encoder call a scene, on its two context views.
+    want = {k: 0 for k in pose_counts}
+    want.update(encoder_graph_eager=1, encoder_graph_replay=len(CLI_INDEX) - 1)
+    if rc != 0 or not pose_file.exists() or pose_counts != want:
+        fail(f"cli_eval_pose: rc {rc}, launches {pose_counts}, expected "
+             f"{want}")
+    emit({"phase": "cli_eval_pose", "launches": pose_counts,
+          "summary": json.loads(pose_file.read_text()),
           "pnp_library": str(pnp.native_library().path.relative_to(repo)),
           "pnp_build_seconds": pnp.native_library().build_seconds})
     # The synthetic chunks stay for phase "vggt_cli"; the checkpoints go.
@@ -2846,7 +2877,7 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
     traced_s = time.perf_counter() - t0
     paths["utils_traced_request"] = dict(cuda_lib.launch_counts)
     want = {k: 0 for k in paths["utils_traced_request"]}
-    want.update(composite_forward=1, cumsum_1d=2)
+    want.update(composite_forward=1, cumsum_1d=2, encoder_graph_replay=1)
     trace_file = root / "profile" / "trace.json"
     device_events = sum(e.device_type == torch.autograd.DeviceType.CUDA
                         for e in prof.events())
@@ -2878,8 +2909,10 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
         out = encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
                       t["intrinsics"][None])
     paths["tile_shard_1024_encoder"] = dict(cuda_lib.launch_counts)
+    # The encoder's first call at this signature: its eager run and its
+    # capture each count K5's launches.
     want = {k: 0 for k in paths["tile_shard_1024_encoder"]}
-    want.update(flash_forward=K5_PER_PASS)
+    want.update(flash_forward=2 * K5_PER_PASS, encoder_graph_eager=1)
     if paths["tile_shard_1024_encoder"] != want:
         fail(f"tile_shard_1024 encoder launches "
              f"{paths['tile_shard_1024_encoder']}, expected {want}")
@@ -3156,7 +3189,8 @@ def cli_ddp_phase(torch, repo: Path, dev) -> dict:
     test_counts = dict(cuda_lib.launch_counts)
     targets = sum(len(e["target"]) for e in CLI_DDP_INDEX.values())
     want = {k: 0 for k in test_counts}
-    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    want.update(composite_forward=targets, cumsum_1d=2 * targets,
+                encoder_graph_eager=1, encoder_graph_replay=targets - 1)
     scores = test_dir / "scores_all_avg.json"
     if rc != 0 or test_counts != want or not scores.exists():
         fail(f"cli_ddp test: rc {rc}, launches {test_counts} (expected "
@@ -3530,7 +3564,11 @@ def main() -> int:
         results.append(res)
     counts = dict(cuda_lib.launch_counts)
     cams = sum(r["rendered"].shape[0] for r in results)
-    if counts["composite_forward"] != cams or counts["cumsum_1d"] != 2 * cams:
+    # One encoder call a camera, each a replay of the graph that the
+    # warm-up request captured.
+    if counts["composite_forward"] != cams or counts["cumsum_1d"] != 2 * cams \
+            or counts["encoder_graph_eager"] != 0 \
+            or counts["encoder_graph_replay"] != cams:
         fail(f"launch counts {counts} for {cams} rendered cameras")
     for i, res in enumerate(results):
         vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"],
@@ -3714,9 +3752,11 @@ def main() -> int:
     after = evaluate_example(encoder, ex, (hw, hw), dec_cfg, align_cfg,
                              benchmarker=bench, device=dev)
     align_counts = dict(cuda_lib.launch_counts)
-    if align_counts["composite_backward"] != ALIGN_STEPS:
-        fail(f"align: {align_counts['composite_backward']} K2 launches for "
-             f"{ALIGN_STEPS} steps")
+    if align_counts["composite_backward"] != ALIGN_STEPS or (
+            align_counts["encoder_graph_eager"],
+            align_counts["encoder_graph_replay"]) != (0, 1):
+        fail(f"align: launches {align_counts} for {ALIGN_STEPS} steps and "
+             "one encoder replay")
     tgt_img = ex["target"]["image"]
     mse = {name: float(((torch.clamp(r["rendered"], 0, 1) - tgt_img) ** 2)
                        .mean()) for name, r in (("before", before),
@@ -3750,11 +3790,20 @@ def main() -> int:
     long_results, long_counts = serve_requests(
         torch, dev, encoder, long_requests, long_size, long_dec, eval_cfg)
     n_req = len(long_requests)
+    # The warm-up request captured the encoder's graph: each request
+    # replays it, and K5 runs inside the replay, where only the device
+    # trace sees it.
     want = {k: 0 for k in long_counts}
-    want.update(flash_forward=K5_PER_PASS * n_req, composite_forward=n_req,
+    want.update(encoder_graph_replay=n_req, composite_forward=n_req,
                 cumsum_1d=2 * n_req)
     if long_counts != want:
         fail(f"1024^2 serving launch counts {long_counts}, expected {want}")
+    replayed = replayed_kernels(torch, lambda: evaluate_example(
+        encoder, long_requests[0], long_size, long_dec, eval_cfg, device=dev),
+        ("flash_forward_kernel",))
+    if replayed != {"flash_forward_kernel": K5_PER_PASS}:
+        fail(f"1024^2 serving: a replayed request ran {replayed} K5 "
+             f"kernels, not {K5_PER_PASS}")
     for i, res in enumerate(long_results):
         if tuple(res["rendered"].shape) != (1, HW_LONG, HW_LONG, 3):
             fail(f"1024^2 request {i}: rendered shape "
@@ -3786,6 +3835,7 @@ def main() -> int:
             "ref_max_abs"]:
         fail(f"K5 on encoder block 12's q, k, v vs plain: {real_check}")
     emit({"phase": "serving_1024", "requests": n_req, "launches": long_counts,
+          "replayed_k5_a_request": replayed,
           "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3
                          for r in long_results],
           "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3

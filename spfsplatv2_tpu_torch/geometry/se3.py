@@ -7,6 +7,8 @@ camera-to-world (c2w) 4x4 matrices; quaternions are (w, x, y, z).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -129,9 +131,16 @@ def se3_exp(tau: torch.Tensor) -> torch.Tensor:
 def pack_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation -> (..., 4, 4)."""
     top = torch.cat([r, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
-    bottom = bottom.expand(*r.shape[:-2], 1, 4)
+    bottom = _bottom_row(r.dtype, r.device).expand(*r.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
+
+
+@functools.lru_cache(maxsize=None)
+def _bottom_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[0, 0, 0, 1], made once a dtype and device: a copy from the host
+    in each call would stall the stream and could not be captured in a
+    CUDA graph."""
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
 
 
 def inverse_se3(m: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,8 @@ adapter and the density -> opacity warm-up mapping).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -21,6 +23,12 @@ def sh_mask(sh_degree: int) -> np.ndarray:
     for degree in range(1, sh_degree + 1):
         mask[degree**2: (degree + 1) ** 2] = 0.1 * 0.25**degree
     return mask
+
+
+@functools.lru_cache(maxsize=None)
+def _sh_mask_on(sh_degree: int, device: torch.device) -> torch.Tensor:
+    """`sh_mask` on `device`, copied there once."""
+    return torch.as_tensor(sh_mask(sh_degree), device=device)
 
 
 def map_pdf_to_opacity(
@@ -49,8 +57,8 @@ def unified_gaussian_adapter(
     rotations = rotations / (
         torch.linalg.norm(rotations, dim=-1, keepdim=True) + eps
     )
-    mask = torch.as_tensor(sh_mask(sh_degree), device=sh.device)
-    sh = sh.reshape(*sh.shape[:-1], 3, d_sh) * mask
+    sh = sh.reshape(*sh.shape[:-1], 3, d_sh) * _sh_mask_on(sh_degree,
+                                                           sh.device)
     covariances = build_covariance(scales, rotations)
     return Gaussians(
         means=means,

@@ -221,8 +221,9 @@ class MaskedCrocoBackbone(nn.Module):
         flat = images.reshape(b * v, h, w, 3)
         if cfg.patch_embed_cls == "manyar":
             if true_shapes is None:
-                true_shapes = torch.tensor([h, w], device=images.device).expand(
-                    b, v, 2)
+                true_shapes = torch.stack(
+                    [torch.full((b, v), h, device=images.device),
+                     torch.full((b, v), w, device=images.device)], dim=-1)
             x, pos = self.patch_embed(flat, true_shapes.reshape(b * v, 2))
         else:
             x, pos = self.patch_embed(flat)
@@ -241,10 +242,10 @@ class MaskedCrocoBackbone(nn.Module):
             extra.append(self.pose_token.expand(b, v, 1, cfg.enc_embed_dim))
         if extra:
             x = torch.cat([x] + extra, dim=2)
-            extra_pos = torch.tensor(
-                [[gh + i, 0] for i in range(len(extra))], dtype=pos.dtype,
-                device=pos.device,
-            )
+            # Rows gh, gh + 1, ... of column 0, made on the device.
+            rows = torch.arange(gh, gh + len(extra), dtype=pos.dtype,
+                                device=pos.device)
+            extra_pos = torch.stack([rows, torch.zeros_like(rows)], dim=-1)
             pos = torch.cat(
                 [pos, extra_pos[None, None].expand(b, v, len(extra), 2)], dim=2
             )

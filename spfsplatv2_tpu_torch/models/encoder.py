@@ -7,7 +7,9 @@ view 0, head 2 for the rest, folded into the batch); dual MLP pose heads
 on the pose token; 6D -> SE3 pose post-processing relative to view 0; and
 the unified Gaussian adapter.  `remat_heads` recomputes the DPT heads in
 the backward pass (activation checkpointing, only while autograd
-records), as the JAX config does.  `estimating_focal` adds the
+records), as the JAX config does.  In inference on the card (autograd
+off, `eval()`) the backbone and heads replay a CUDA graph captured once
+an input signature (`utils/cuda_graph.py`).  `estimating_focal` adds the
 intrinsics estimated from view 0's pointmap (`intrinsics_cwt`).  The
 SPFSplat v1 encoder (`encoder_spfsplat.py`) shares the heads, their
 seeded init, the pose post-processing and the Gaussian assembly.
@@ -39,6 +41,7 @@ from spfsplatv2_tpu_torch.models.croco.backbone import (
 from spfsplatv2_tpu_torch.models.heads.dpt import DPTGSHead, DPTHead
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHead, PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
+from spfsplatv2_tpu_torch.utils.cuda_graph import EncoderGraphs
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
 from spfsplatv2_tpu_torch.utils.profiling import span
 
@@ -171,6 +174,28 @@ class SPFSplatV2Encoder(nn.Module):
         context_valid: torch.Tensor | None = None,  # (v_cxt,)
         target_valid: torch.Tensor | None = None,   # (v_tgt,)
     ) -> dict:
+        """The backbone and heads run as one CUDA graph replay in
+        inference (CUDA inputs, autograd off, `eval()`: `_graphs`), and
+        eagerly otherwise; the Gaussians are assembled eagerly."""
+        args = (context_images, context_intrinsics, target_images,
+                target_intrinsics, context_valid, target_valid)
+        if (context_images.is_cuda and not torch.is_grad_enabled()
+                and not self.training):
+            pts3d, raw_gs, poses = self._graphs()(self._network, args)
+        else:
+            pts3d, raw_gs, poses = self._network(*args)
+        v_cxt = context_images.shape[1]
+        v_tgt = 0 if target_images is None else target_images.shape[1]
+        with span("encoder.gaussians"):
+            return self._assemble(
+                pts3d, raw_gs, None if poses is None else poses[:, :v_cxt],
+                poses, global_step, v_cxt + v_tgt, context_valid)
+
+    def _network(self, context_images, context_intrinsics, target_images,
+                 target_intrinsics, context_valid, target_valid):
+        """Normalisation, backbone and heads -> (pts3d (b, v_cxt, h, w, 3),
+        the raw Gaussian channels (b, v_cxt, h, w, c), every view's c2w
+        pose (b, v, 4, 4) or None without `estimating_pose`)."""
         cfg = self.cfg
         v_cxt = context_images.shape[1]
         v_tgt = 0 if target_images is None else target_images.shape[1]
@@ -205,16 +230,29 @@ class SPFSplatV2Encoder(nn.Module):
             raw_gs = self._run_dual_heads("gaussian_param_head", ctx_feat,
                                           grid, cfg.remat_heads,
                                           extra=images[:, :v_cxt])
-
-            extrinsics_c = extrinsics_cwt = None
+            poses = None
             if cfg.estimating_pose:
                 poses = self._process_pose(self._pose_pass(pose_feat[-1]),
                                            v_cxt)
-                extrinsics_c = poses[:, :v_cxt]
-                extrinsics_cwt = poses
-        with span("encoder.gaussians"):
-            return self._assemble(pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
-                                  global_step, v_cxt + v_tgt, context_valid)
+        return pts3d, raw_gs, poses
+
+    def _graphs(self) -> EncoderGraphs:
+        """The captured inference forwards, one a signature (made at first
+        use; `train()` and moving or casting the module drop them)."""
+        if getattr(self, "_graph_cache", None) is None:
+            self._graph_cache = EncoderGraphs()
+        return self._graph_cache
+
+    def train(self, mode: bool = True):
+        """As `nn.Module.train`; entering training drops the graphs."""
+        if mode:
+            self._graph_cache = None
+        return super().train(mode)
+
+    def _apply(self, fn, recurse=True):
+        # The graphs read the parameters where they were at capture.
+        self._graph_cache = None
+        return super()._apply(fn, recurse)
 
     def _pose_pass(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (b, v, n, c), pooled over n by the heads: head 1 on

@@ -8,8 +8,13 @@ happens at first use; `build_all()` starts one `nvcc` per source, all at
 once.  Nothing here runs at import.
 
 `launch_counts` holds one plain integer per kernel.  Each wrapper adds one
-where it launches its kernel, and nowhere else, so a run can show that
-its main path went through the kernels.
+where it launches its kernel (or records the launch into a CUDA graph
+being captured), and nowhere else, so a run can show that its main path
+went through the kernels.  A graph's replay calls no wrapper: the kernels
+it launches show in a device trace only.  Two more count the encoder's
+inference forwards that took its CUDA graphs (`utils/cuda_graph.py`):
+`encoder_graph_replay`, the replays, and `encoder_graph_eager`, the
+first call of each input signature, run eagerly before its capture.
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ launch_counts: dict[str, int] = {
     "flash_backward_dq": 0, "flash_f32_forward": 0,
     "flash_f32_split_forward": 0, "flash_f32_split": 0,
     "flash_f32_backward_dkv": 0, "flash_f32_backward_dq": 0,
+    "encoder_graph_replay": 0, "encoder_graph_eager": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 
