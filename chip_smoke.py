@@ -1049,7 +1049,7 @@ def render_vs_plain(torch, decode, cams_args, gaussians, where: str) -> tuple:
             plain = decode(gaussians, *cams_args)
     if cuda_lib.launch_counts["composite_forward"] or cuda_lib.launch_counts[
             "cumsum_1d"] or not scans:
-        fail(f"{where} plain render: launches {dict(cuda_lib.launch_counts)}, "
+        fail(f"{where} plain render: launches {cuda_lib.launches()}, "
              f"{len(scans)} prefix sums")
     depth_max = float(plain.depth.abs().max())
     check = {}
@@ -1208,7 +1208,7 @@ def ortho_phase(torch, dev, where: str, gaussians, c2w, intrinsics, near,
     cuda_lib.reset_launch_counts()
     with first_k2_launch(raster_cuda) as seen:
         out, grads = loss_and_grads("ortho")
-    counts = dict(cuda_lib.launch_counts)
+    counts = cuda_lib.launches()
     want = {k: 0 for k in counts}
     want.update(composite_forward=1, cumsum_1d=2, composite_backward=1)
     if counts != want:
@@ -1341,7 +1341,7 @@ def serve_requests(torch, dev, encoder, requests, size, dec_cfg, eval_cfg):
         res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         res["times"] = bench.summarize()
         results.append(res)
-    return results, dict(cuda_lib.launch_counts)
+    return results, cuda_lib.launches()
 
 
 def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
@@ -1491,7 +1491,7 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
             cuda_lib.reset_launch_counts()
             steps = [run_train_step(torch, dev, state, step_fn, b)
                      for b in batches]
-            train_counts = dict(cuda_lib.launch_counts)
+            train_counts = cuda_lib.launches()
     finally:
         attention.flash_backward_dkv_cuda = dkv_inner
     # Each microbatch pass runs the encoder forward once and, under remat,
@@ -1588,7 +1588,7 @@ def train_steps(torch, dev, state, cfg, hw, lpips, batches, where: str,
     with first_k2_launch(raster_cuda) as k2_seen:
         cuda_lib.reset_launch_counts()
         steps = [run_train_step(torch, dev, state, step_fn, b) for b in batches]
-        counts = dict(cuda_lib.launch_counts)
+        counts = cuda_lib.launches()
     cams = len(batches) * batch_size
     want = {k: 0 for k in counts}
     want.update(composite_forward=cams, composite_backward=cams,
@@ -1631,10 +1631,10 @@ def cli_train(torch, dev, argv: list, wraps: dict) -> dict:
             step = real(*args, **kwargs)
 
             def counted(state, batch_):
-                before = dict(cuda_lib.launch_counts)
+                before = cuda_lib.launches()
                 result = step(state, batch_)
                 step_counts.append({k: v - before[k]
-                                    for k, v in cuda_lib.launch_counts.items()})
+                                    for k, v in cuda_lib.launches().items()})
                 return result
 
             return counted
@@ -1666,7 +1666,7 @@ def cli_train(torch, dev, argv: list, wraps: dict) -> dict:
         for name, fn in real.items():
             setattr(loop, name, fn)
     seconds = time.perf_counter() - t0
-    counts = dict(cuda_lib.launch_counts)
+    counts = cuda_lib.launches()
     gc.collect()
     torch.cuda.empty_cache()
     return {"rc": rc, "seconds": seconds, "logged": logged, "guards": guards,
@@ -1845,7 +1845,7 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
         rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}"])
     finally:
         cli._load_encoder = real_load
-    test_counts = dict(cuda_lib.launch_counts)
+    test_counts = cuda_lib.launches()
     targets = sum(len(e["target"]) for e in CLI_INDEX.values())
     want = {k: 0 for k in test_counts}
     want.update(composite_forward=targets, cumsum_1d=2 * targets)
@@ -1912,6 +1912,7 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
     from spfsplatv2_tpu_torch.models import get_encoder
     from spfsplatv2_tpu_torch.models.decoder import decode_splatting
+    from spfsplatv2_tpu_torch.ops import cuda_lib
     from spfsplatv2_tpu_torch.training import loop
     from spfsplatv2_tpu_torch.training.optim import Optimizer
     from spfsplatv2_tpu_torch.training.step import init_train_state
@@ -1939,6 +1940,18 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     want.update(composite_forward=V1_REQUESTS, cumsum_1d=2 * V1_REQUESTS)
     if serve_counts != want:
         fail(f"v1_request launch counts {serve_counts}, expected {want}")
+    # Each decoder pass writes, a layer, every view's tokens' logits against
+    # every view's over all heads (the masked pairs too): (v l)^2 h.
+    bb = cfg.encoder.spfsplat.backbone
+    tokens = (hw[0] // bb.patch_size) * (hw[1] // bb.patch_size) + 1
+    v_cxt = requests[0]["context"]["image"].shape[0]
+    v_all = v_cxt + requests[0]["target"]["image"].shape[0]
+    per_request = (bb.dec_depth * bb.dec_num_heads * tokens ** 2
+                   * (v_cxt ** 2 + v_all ** 2))
+    logits = cuda_lib.launch_counts["masked_attn_logits"]
+    if logits != V1_REQUESTS * per_request:
+        fail(f"v1_request masked logits {logits}, expected "
+             f"{V1_REQUESTS} x {per_request}")
     for i, res in enumerate(results):
         vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"],
                 *res["pose_transl_err_deg"]]
@@ -1965,7 +1978,7 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     if not float(alpha.mean()) > 0.0:
         fail("v1 request 0 renders nothing")
     emit({"phase": "v1_request", "requests": V1_REQUESTS,
-          "launches": serve_counts,
+          "launches": serve_counts, "masked_logits": logits,
           "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3 for r in results],
           "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3 for r in results],
           "peak_bytes": [r["peak_bytes"] for r in results],
@@ -2096,7 +2109,7 @@ def v1_cli_phase(torch, repo: Path, dev) -> dict:
 
     cuda_lib.reset_launch_counts()
     rc = cli.main(argv + ["mode=test", f"checkpointing.load={ckpt_path}"])
-    test_counts = dict(cuda_lib.launch_counts)
+    test_counts = cuda_lib.launches()
     targets = sum(len(e["target"]) for e in CLI_INDEX.values())
     want = {k: 0 for k in test_counts}
     want.update(composite_forward=targets, cumsum_1d=2 * targets)
@@ -2185,7 +2198,7 @@ def demo_phase(torch, repo: Path, dev) -> dict:
         video.save_video = real["save_video"]
         ply_export.export_ply = real["export_ply"]
     run_s = time.perf_counter() - t0
-    counts = dict(cuda_lib.launch_counts)
+    counts = cuda_lib.launches()
     peak = torch.cuda.max_memory_allocated(dev)
 
     # Two encoder passes of one signature (the demo's, then the video's on
@@ -2340,7 +2353,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
         for name, fn in real.items():
             setattr(loop, name, fn)
     train_s = time.perf_counter() - t0
-    train_counts = dict(cuda_lib.launch_counts)
+    train_counts = cuda_lib.launches()
     gc.collect()
     torch.cuda.empty_cache()
     if rc != 0 or len(step_ms) != CLI_STEPS or len(saves) != 1:
@@ -2394,7 +2407,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
         f"trainer.hbm_budget_gb={CLI_LOW_BUDGET_GB}"])
     cuda_lib.reset_launch_counts()
     result = loop.run_training(low, max_steps=0, device=dev)
-    guard_counts = dict(cuda_lib.launch_counts)
+    guard_counts = cuda_lib.launches()
     low_guard = result["guard"]
     took = (result["state"].step, result["state"].optimizer.count)
     del result
@@ -2434,7 +2447,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
                               "test.save_image=true", "test.save_video=true"])
     finally:
         visualization.save_image, cli._load_encoder = real_save_image, real_load
-    test_counts = dict(cuda_lib.launch_counts)
+    test_counts = cuda_lib.launches()
     targets = sum(len(e["target"]) for e in CLI_INDEX.values())
     # One encoder call a target, all of one signature: the first captures
     # the graph, the others replay it.
@@ -2476,7 +2489,7 @@ def cli_phases(torch, repo: Path, dev) -> dict:
     # ---- 18. cli_eval_pose: mode=eval_pose -------------------------------
     cuda_lib.reset_launch_counts()
     rc = cli.main(argv + ["mode=eval_pose", f"checkpointing.load={ckpt_path}"])
-    pose_counts = dict(cuda_lib.launch_counts)
+    pose_counts = cuda_lib.launches()
     pose_file = test_dir / "pose_eval.json"
     # One encoder call a scene, on its two context views.
     want = {k: 0 for k in pose_counts}
@@ -2625,7 +2638,7 @@ def ddp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         _, metrics = step(state, batches[0])
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(cuda_lib.launch_counts)
+        counts = cuda_lib.launches()
         audit = json.loads(json.dumps(step.audit.counts))
         peak = torch.cuda.max_memory_allocated(dev)
         flat = torch.cat([p.detach().reshape(-1) for p in optimizer.params])
@@ -2683,12 +2696,12 @@ def tile_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             cfg=data["cfg"])
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3
-        fwd_counts = dict(cuda_lib.launch_counts)
+        fwd_counts = cuda_lib.launches()
         sum((o * w).sum() for o, w in zip((res.color, res.depth, res.alpha),
                                           data["weights"])).backward()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = dict(cuda_lib.launch_counts)
+        counts = cuda_lib.launches()
         flat = torch.cat([t.grad.reshape(-1) for t in leaves])
         identical = same_on_every_rank(torch, dist, flat)
         if rank == 0:
@@ -2875,7 +2888,7 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
         res = evaluate_example(encoder, req, hw, DecoderConfig(), EvalConfig(),
                                device=dev)
     traced_s = time.perf_counter() - t0
-    paths["utils_traced_request"] = dict(cuda_lib.launch_counts)
+    paths["utils_traced_request"] = cuda_lib.launches()
     want = {k: 0 for k in paths["utils_traced_request"]}
     want.update(composite_forward=1, cumsum_1d=2, encoder_graph_replay=1)
     trace_file = root / "profile" / "trace.json"
@@ -2908,7 +2921,7 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
     with torch.no_grad():
         out = encoder(c["image"][None], c["intrinsics"][None], t["image"][None],
                       t["intrinsics"][None])
-    paths["tile_shard_1024_encoder"] = dict(cuda_lib.launch_counts)
+    paths["tile_shard_1024_encoder"] = cuda_lib.launches()
     # The encoder's first call at this signature: its eager run and its
     # capture each count K5's launches.
     want = {k: 0 for k in paths["tile_shard_1024_encoder"]}
@@ -2940,7 +2953,7 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
         ).backward()
     torch.cuda.synchronize()
     single_ms = (time.perf_counter() - t0) * 1e3
-    paths["tile_shard_1024_single"] = dict(cuda_lib.launch_counts)
+    paths["tile_shard_1024_single"] = cuda_lib.launches()
     single_out = {k: getattr(single, k).detach().cpu()
                   for k in ("color", "depth", "alpha")}
     single_grads = [x.grad.cpu() for x in leaves]
@@ -2963,7 +2976,7 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
     cuda_lib.reset_launch_counts()
     parent = run_train_step(torch, dev, state, step,
                             seeded_batch(torch, dev, 2100, TRAIN_BATCH, hw[0]))
-    paths["ddp_one_process_step"] = dict(cuda_lib.launch_counts)
+    paths["ddp_one_process_step"] = cuda_lib.launches()
     parent_grad = grads[0]
     parent_params = torch.cat([p.detach().reshape(-1)
                                for p in optimizer.params]).cpu()
@@ -3186,7 +3199,7 @@ def cli_ddp_phase(torch, repo: Path, dev) -> dict:
     rc = run_cli(cli, [*config, *overrides, "mode=test",
                        f"checkpointing.load={ckpt}"])
     test_s = time.perf_counter() - t0
-    test_counts = dict(cuda_lib.launch_counts)
+    test_counts = cuda_lib.launches()
     targets = sum(len(e["target"]) for e in CLI_DDP_INDEX.values())
     want = {k: 0 for k in test_counts}
     want.update(composite_forward=targets, cumsum_1d=2 * targets,
@@ -3258,13 +3271,13 @@ def overfit_short_phase(torch, repo: Path, dev) -> dict:
         step_fn = real(*args, **kwargs)
 
         def step(state, batch):
-            before = dict(cuda_lib.launch_counts)
+            before = cuda_lib.launches()
             if len(steps) == OVERFIT_PROFILE_STEP:
                 state, metrics = profiled_step(step_fn, state, batch)
             else:
                 state, metrics = step_fn(state, batch)
             steps.append({"launches": {k: v - before[k] for k, v in
-                                       cuda_lib.launch_counts.items()},
+                                       cuda_lib.launches().items()},
                           **metrics})
             return state, metrics
 
@@ -3278,7 +3291,7 @@ def overfit_short_phase(torch, repo: Path, dev) -> dict:
             [f"train.print_log_every_n_steps={OVERFIT_LOG_EVERY}"])
     finally:
         loop.make_train_step = real
-    want = {k: OVERFIT_STEP_LAUNCHES.get(k, 0) for k in cuda_lib.launch_counts}
+    want = {k: OVERFIT_STEP_LAUNCHES.get(k, 0) for k in cuda_lib.launches()}
     losses = np.array([st["loss/total"] for st in steps])
     psnrs = np.array([st["train/psnr"] for st in steps])
     skipped = steps[-1]["grad/skipped_steps"]
@@ -3562,7 +3575,7 @@ def main() -> int:
         res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         res["times"] = bench.summarize()
         results.append(res)
-    counts = dict(cuda_lib.launch_counts)
+    counts = cuda_lib.launches()
     cams = sum(r["rendered"].shape[0] for r in results)
     # One encoder call a camera, each a replay of the graph that the
     # warm-up request captured.
@@ -3751,7 +3764,7 @@ def main() -> int:
     cuda_lib.reset_launch_counts()
     after = evaluate_example(encoder, ex, (hw, hw), dec_cfg, align_cfg,
                              benchmarker=bench, device=dev)
-    align_counts = dict(cuda_lib.launch_counts)
+    align_counts = cuda_lib.launches()
     if align_counts["composite_backward"] != ALIGN_STEPS or (
             align_counts["encoder_graph_eager"],
             align_counts["encoder_graph_replay"]) != (0, 1):
@@ -3936,7 +3949,7 @@ def main() -> int:
     batches = [train_batch(i) for i in range(4)]
     cuda_lib.reset_launch_counts()
     steps = [run_step(batch) for batch in batches[:3]]
-    train_counts = dict(cuda_lib.launch_counts)
+    train_counts = cuda_lib.launches()
     per_step = {k: 0 for k in train_counts}
     per_step.update(composite_forward=TRAIN_BATCH,
                     composite_backward=TRAIN_BATCH, cumsum_1d=2 * TRAIN_BATCH)
@@ -3949,7 +3962,7 @@ def main() -> int:
     raster_cuda.ACCUM_MODE = "segscan"
     cuda_lib.reset_launch_counts()
     seg_step = run_step(batches[3])
-    segscan_counts = dict(cuda_lib.launch_counts)
+    segscan_counts = cuda_lib.launches()
     raster_cuda.ACCUM_MODE = "segsum"
     if segscan_counts["segmented_scan"] != TRAIN_BATCH:
         fail(f"segscan step launched K4 {segscan_counts['segmented_scan']} "
@@ -3989,7 +4002,7 @@ def main() -> int:
                       for batch in long_batches]
     finally:
         attention.flash_backward_dkv_cuda = dkv_inner
-    long_train_counts = dict(cuda_lib.launch_counts)
+    long_train_counts = cuda_lib.launches()
     # Each microbatch pass (LONG_BATCH // LONG_MICROBATCH a step, 2 steps)
     # runs the encoder forward once and, under remat, again in the
     # backward; K1/K2 run once per target camera, K3 twice.

@@ -7,7 +7,8 @@ decoders (`dec_blocks` for view 0, `dec_blocks2` for the rest) in which
 every view cross-attends to every other view.  Target views are kept
 apart by running the decoders twice: over the context views only (for
 the pointmap, Gaussian and context pose heads) and over all views (for
-the pose heads).  The blocks are the masked backbone's, with the
+the pose heads), each pass inside its span (`encoder.decode_context`,
+`encoder.decode_all`).  The blocks are the masked backbone's, with the
 diagonal-only view mask.
 """
 
@@ -30,6 +31,7 @@ from spfsplatv2_tpu_torch.models.croco.layers import (
     PatchEmbed,
 )
 from spfsplatv2_tpu_torch.ops.attention import flash_limits_violation
+from spfsplatv2_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -144,7 +146,11 @@ class CrocoMultiBackbone(nn.Module):
         pos = pos.reshape(b, v, l, 2)
 
         v_cxt = v - num_target
-        dec_feat = self._decode(x[:, :v_cxt], pos[:, :v_cxt], p)
-        dec_feat_w_tgt = self._decode(x, pos, p) if num_target else None
+        with span("encoder.decode_context"):
+            dec_feat = self._decode(x[:, :v_cxt], pos[:, :v_cxt], p)
+        dec_feat_w_tgt = None
+        if num_target:
+            with span("encoder.decode_all"):
+                dec_feat_w_tgt = self._decode(x, pos, p)
         return {"dec_feat": dec_feat, "dec_feat_w_tgt": dec_feat_w_tgt,
                 "grid": (gh, gw)}

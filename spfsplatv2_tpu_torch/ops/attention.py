@@ -430,9 +430,12 @@ def sdpa_view_masked(q, k, v, scale, view_mask, tokens_per_view: int,
     and token r belongs to view r // tokens_per_view.  At `chunked_min_kv`
     keys or more, when chunk_q divides n_q, queries go in chunks of
     `chunk_q` (logits O(chunk_q * n_k) at a time; exact, since softmax rows
-    are independent)."""
+    are independent).  Either way the b h n_q n_k float32 logits it writes
+    are added to `cuda_lib.launch_counts["masked_attn_logits"]`."""
     n_q, n_k = q.shape[2], k.shape[2]
     l = tokens_per_view
+    cuda_lib.launch_counts["masked_attn_logits"] += (
+        q.shape[0] * q.shape[1] * n_q * n_k)
     if n_k < chunked_min_kv or n_q % chunk_q != 0:
         logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
         mask = view_mask.repeat_interleave(l, dim=0).repeat_interleave(l, dim=1)

@@ -15,6 +15,9 @@ it launches show in a device trace only.  Two more count the encoder's
 inference forwards that took its CUDA graphs (`utils/cuda_graph.py`):
 `encoder_graph_replay`, the replays, and `encoder_graph_eager`, the
 first call of each input signature, run eagerly before its capture.
+One more counts no launch: `masked_attn_logits`, the float32 logits that
+`ops/attention.py:sdpa_view_masked` writes densely (b h n_q n_k a call,
+on every device), which the benchmark reads as bytes a request.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ launch_counts: dict[str, int] = {
     "flash_f32_split_forward": 0, "flash_f32_split": 0,
     "flash_f32_backward_dkv": 0, "flash_f32_backward_dq": 0,
     "encoder_graph_replay": 0, "encoder_graph_eager": 0,
+    "masked_attn_logits": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -100,6 +104,13 @@ _libs: dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def launches() -> dict[str, int]:
+    """A copy of `launch_counts` less `masked_attn_logits`: the calls that
+    a phase or a test expects by number."""
+    return {k: v for k, v in launch_counts.items()
+            if k != "masked_attn_logits"}
 
 
 def _nvcc() -> str:

@@ -195,7 +195,7 @@ def run_overfit(root: str | Path, out: str | Path, steps: int = MAX_STEPS,
                   "peak_gb": result["guard"]["peak_gb"]},
         # The segment's kernel launches: its steps and the guard's probe
         # (one forward and backward of the first batch).
-        "launches": dict(cuda_lib.launch_counts),
+        "launches": cuda_lib.launches(),
         "curve": curve,
     }
     out = Path(out)

@@ -103,7 +103,7 @@ def test_grads_match_jax_vjp_and_oracle(base):
     bg = np.zeros(3, np.float32)
     cuda_lib.reset_launch_counts()
     ours = port_grads(args, target, bg, base=base)
-    assert all(v == 0 for v in cuda_lib.launch_counts.values())
+    assert not any(cuda_lib.launches().values())
     assert_grads_close(ours, jax_grads(args, target, bg, "pallas", base=base))
     assert_grads_close(ours, port_grads(args, target, bg, "ref"))
 
