@@ -1711,8 +1711,11 @@ def vggt_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     resident = torch.cuda.memory_allocated(dev)
     results, serve_counts = serve_requests(torch, dev, encoder, requests, hw,
                                            dec_cfg, eval_cfg)
+    # The warm-up request captured the encoder's graph: each request
+    # replays it.
     want = {k: 0 for k in serve_counts}
-    want.update(composite_forward=VGGT_REQUESTS, cumsum_1d=2 * VGGT_REQUESTS)
+    want.update(composite_forward=VGGT_REQUESTS, cumsum_1d=2 * VGGT_REQUESTS,
+                encoder_graph_replay=VGGT_REQUESTS)
     if serve_counts != want:
         fail(f"vggt_serve launch counts {serve_counts}, expected {want}")
     for i, res in enumerate(results):
@@ -1847,8 +1850,11 @@ def vggt_cli_phase(torch, repo: Path, dev) -> dict:
         cli._load_encoder = real_load
     test_counts = cuda_lib.launches()
     targets = sum(len(e["target"]) for e in CLI_INDEX.values())
+    # One encoder call a target, all of one signature: the first captures
+    # the graph, the others replay it.
     want = {k: 0 for k in test_counts}
-    want.update(composite_forward=targets, cumsum_1d=2 * targets)
+    want.update(composite_forward=targets, cumsum_1d=2 * targets,
+                encoder_graph_eager=1, encoder_graph_replay=targets - 1)
     scores = test_dir / "scores_all_avg.json"
     if rc != 0 or test_counts != want or not scores.exists():
         fail(f"vggt_cli test: rc {rc}, launches {test_counts} (expected "
@@ -2781,8 +2787,9 @@ def vggt_10view_phase(torch, repo: Path, dev) -> dict:
     req = seeded_request(torch, dev, 3000, hw[0], offsets)
     (res,), serve_counts = serve_requests(torch, dev, encoder, [req], hw,
                                           dec_cfg, eval_cfg)
+    # The warm-up request captured the encoder's graph; this one replays it.
     want = {k: 0 for k in serve_counts}
-    want.update(composite_forward=1, cumsum_1d=2)
+    want.update(composite_forward=1, cumsum_1d=2, encoder_graph_replay=1)
     vals = [*res["psnr"], *res["ssim"], *res["pose_rot_err_deg"]]
     if serve_counts != want or not bool(torch.isfinite(
             res["rendered"]).all()) or not all(np.isfinite(vals)):

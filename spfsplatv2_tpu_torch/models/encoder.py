@@ -41,7 +41,7 @@ from spfsplatv2_tpu_torch.models.croco.backbone import (
 from spfsplatv2_tpu_torch.models.heads.dpt import DPTGSHead, DPTHead
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHead, PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
-from spfsplatv2_tpu_torch.utils.cuda_graph import EncoderGraphs
+from spfsplatv2_tpu_torch.utils.cuda_graph import GraphedNetwork
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
 from spfsplatv2_tpu_torch.utils.profiling import span
 
@@ -80,7 +80,7 @@ class SPFSplatV2Config:
     remat_heads: bool = True
 
 
-class SPFSplatV2Encoder(nn.Module):
+class SPFSplatV2Encoder(GraphedNetwork, nn.Module):
     def __init__(self, cfg: SPFSplatV2Config = SPFSplatV2Config()):
         super().__init__()
         self.cfg = cfg
@@ -175,15 +175,11 @@ class SPFSplatV2Encoder(nn.Module):
         target_valid: torch.Tensor | None = None,   # (v_tgt,)
     ) -> dict:
         """The backbone and heads run as one CUDA graph replay in
-        inference (CUDA inputs, autograd off, `eval()`: `_graphs`), and
+        inference (CUDA inputs, autograd off, `eval()`: `_run_network`), and
         eagerly otherwise; the Gaussians are assembled eagerly."""
-        args = (context_images, context_intrinsics, target_images,
-                target_intrinsics, context_valid, target_valid)
-        if (context_images.is_cuda and not torch.is_grad_enabled()
-                and not self.training):
-            pts3d, raw_gs, poses = self._graphs()(self._network, args)
-        else:
-            pts3d, raw_gs, poses = self._network(*args)
+        pts3d, raw_gs, poses = self._run_network(
+            (context_images, context_intrinsics, target_images,
+             target_intrinsics, context_valid, target_valid))
         v_cxt = context_images.shape[1]
         v_tgt = 0 if target_images is None else target_images.shape[1]
         with span("encoder.gaussians"):
@@ -235,24 +231,6 @@ class SPFSplatV2Encoder(nn.Module):
                 poses = self._process_pose(self._pose_pass(pose_feat[-1]),
                                            v_cxt)
         return pts3d, raw_gs, poses
-
-    def _graphs(self) -> EncoderGraphs:
-        """The captured inference forwards, one a signature (made at first
-        use; `train()` and moving or casting the module drop them)."""
-        if getattr(self, "_graph_cache", None) is None:
-            self._graph_cache = EncoderGraphs()
-        return self._graph_cache
-
-    def train(self, mode: bool = True):
-        """As `nn.Module.train`; entering training drops the graphs."""
-        if mode:
-            self._graph_cache = None
-        return super().train(mode)
-
-    def _apply(self, fn, recurse=True):
-        # The graphs read the parameters where they were at capture.
-        self._graph_cache = None
-        return super()._apply(fn, recurse)
 
     def _pose_pass(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (b, v, n, c), pooled over n by the heads: head 1 on

@@ -11,6 +11,9 @@
   * the DPT-GS head with the RGB skip -> raw Gaussian parameters;
   * the unified Gaussian adapter shared with the flagship.
 No layer is recomputed in the backward pass (the JAX module has no remat).
+In inference on the card (autograd off, `eval()`) the aggregator and
+heads replay a CUDA graph captured once an input signature, as the
+flagship's do (`utils/cuda_graph.py`).
 
 Weights come from `utils/from_flax.py` (a flax param tree), from
 `utils/ckpt_convert_vggt.py` (a reference VGGT state dict) or from
@@ -43,6 +46,7 @@ from spfsplatv2_tpu_torch.models.vggt.camera_head import (
 )
 from spfsplatv2_tpu_torch.models.vggt.dpt_head import VGGTDPTHead
 from spfsplatv2_tpu_torch.models.vggt.layers import LayerScale
+from spfsplatv2_tpu_torch.utils.cuda_graph import GraphedNetwork
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
 from spfsplatv2_tpu_torch.utils.profiling import span
 
@@ -60,7 +64,7 @@ class SPFSplatV2LConfig:
     pose_make_relative: bool = True
 
 
-class SPFSplatV2LEncoder(nn.Module):
+class SPFSplatV2LEncoder(GraphedNetwork, nn.Module):
     def __init__(self, cfg: SPFSplatV2LConfig = SPFSplatV2LConfig()):
         super().__init__()
         self.cfg = cfg
@@ -119,9 +123,64 @@ class SPFSplatV2LEncoder(nn.Module):
     ) -> dict:
         """`context_valid` / `target_valid` drop views with static shapes:
         a dropped view vanishes from the global attention and the camera
-        head's trunk, and its Gaussians get zero opacity."""
+        head's trunk, and its Gaussians get zero opacity.  The aggregator
+        and heads run as one CUDA graph replay in inference (CUDA inputs,
+        autograd off, `eval()`: `_run_network`), and eagerly otherwise;
+        the Gaussians are assembled eagerly."""
+        pts3d, conf, raw_gs, poses = self._run_network(
+            (context_images, context_intrinsics, target_images,
+             target_intrinsics, context_valid, target_valid))
+        with span("encoder.gaussians"):
+            return self._assemble(pts3d, conf, raw_gs, poses, global_step,
+                                  context_valid)
+
+    def _assemble(self, pts3d, conf, raw_gs, poses, global_step,
+                  context_valid=None) -> dict:
+        """The encoder's output dict: Gaussians from the context views'
+        points and raw head channels (opacities zeroed for dropped context
+        views), depths from the context poses."""
         cfg = self.cfg
-        b, v_cxt, h, w, _ = context_images.shape
+        b, v_cxt, h, w, _ = pts3d.shape
+        extrinsics_c = None if poses is None else poses[:, :v_cxt]
+        densities = torch.sigmoid(raw_gs[..., 0])
+        om = cfg.opacity_mapping
+        opacities = map_pdf_to_opacity(densities, global_step, om.initial,
+                                       om.final, om.warm_up)
+        if context_valid is not None:
+            opacities = opacities * context_valid.to(opacities.dtype)[
+                None, :, None, None
+            ]
+        gs_dim = raw_gaussian_channels(cfg.sh_degree)
+        gaussians = unified_gaussian_adapter(
+            pts3d.reshape(b, v_cxt, h * w, 3),
+            opacities.reshape(b, v_cxt, h * w),
+            raw_gs[..., 1:].reshape(b, v_cxt, h * w, gs_dim - 1),
+            sh_degree=cfg.sh_degree,
+        ).flatten_views()
+
+        depths = None
+        if extrinsics_c is not None:
+            depths = se3.depth_from_pose(
+                pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
+            ).reshape(b, v_cxt, h, w)
+        return {
+            "gaussians": gaussians,
+            "extrinsics_c": extrinsics_c,
+            "extrinsics_cwt": poses,
+            "pts3d": pts3d,
+            "pts3d_conf": conf,
+            "depths": depths,
+            "densities": densities,
+        }
+
+    def _network(self, context_images, context_intrinsics, target_images,
+                 target_intrinsics, context_valid, target_valid):
+        """Aggregator and heads -> (pts3d (b, v_cxt, h, w, 3), their
+        confidence (b, v_cxt, h, w), the raw Gaussian channels (b, v_cxt,
+        h, w, c), every view's c2w pose (b, v, 4, 4) or None without
+        `estimating_pose`)."""
+        cfg = self.cfg
+        v_cxt = context_images.shape[1]
         v_tgt = 0 if target_images is None else target_images.shape[1]
         dev = context_images.device
 
@@ -145,51 +204,18 @@ class SPFSplatV2LEncoder(nn.Module):
         with span("encoder.heads"):
             tokens, patch_start, grid = (agg["tokens"], agg["patch_start"],
                                          agg["grid"])
-            extrinsics_c = extrinsics_cwt = None
+            poses = None
             if cfg.estimating_pose:
                 pose_enc = self.camera_head(tokens[-1][:, :, 0],
                                             view_valid=view_valid)
                 poses = se3.inverse_se3(pose_encoding_to_w2c(pose_enc))
                 poses = self._normalize_poses(poses, v_cxt)
-                extrinsics_c = poses[:, :v_cxt]
-                extrinsics_cwt = poses
 
             ctx_tokens = [t[:, :v_cxt] for t in tokens]
             pts3d, conf = self.point_head(ctx_tokens, grid, patch_start)
-            gs_dim = raw_gaussian_channels(cfg.sh_degree)
             raw_gs = self.gaussian_param_head(ctx_tokens, grid, patch_start,
                                               images=context_images)
-
-        with span("encoder.gaussians"):
-            densities = torch.sigmoid(raw_gs[..., 0])
-            om = cfg.opacity_mapping
-            opacities = map_pdf_to_opacity(densities, global_step, om.initial,
-                                           om.final, om.warm_up)
-            if context_valid is not None:
-                opacities = opacities * context_valid.to(opacities.dtype)[
-                    None, :, None, None
-                ]
-            gaussians = unified_gaussian_adapter(
-                pts3d.reshape(b, v_cxt, h * w, 3),
-                opacities.reshape(b, v_cxt, h * w),
-                raw_gs[..., 1:].reshape(b, v_cxt, h * w, gs_dim - 1),
-                sh_degree=cfg.sh_degree,
-            ).flatten_views()
-
-            depths = None
-            if extrinsics_c is not None:
-                depths = se3.depth_from_pose(
-                    pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
-                ).reshape(b, v_cxt, h, w)
-        return {
-            "gaussians": gaussians,
-            "extrinsics_c": extrinsics_c,
-            "extrinsics_cwt": extrinsics_cwt,
-            "pts3d": pts3d,
-            "pts3d_conf": conf,
-            "depths": depths,
-            "densities": densities,
-        }
+        return pts3d, conf, raw_gs, poses
 
     def _normalize_poses(self, poses: torch.Tensor, v_cxt: int) -> torch.Tensor:
         """Baseline-1 rescale and relative-to-view-0 normalization."""

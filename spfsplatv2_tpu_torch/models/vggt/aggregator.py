@@ -16,6 +16,7 @@ masking (torch port of `spfsplatv2_tpu/models/vggt/aggregator.py`).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
@@ -78,6 +79,15 @@ def global_view_mask(v: int, p: int, num_target: int,
     return mask.repeat_interleave(p, dim=0).repeat_interleave(p, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _resnet_mean_std(device: torch.device, dtype: torch.dtype):
+    """RESNET_MEAN and RESNET_STD as tensors, made once a device and
+    dtype: a copy from the host in each call would stall the stream and
+    could not be captured in a CUDA graph."""
+    return (torch.tensor(RESNET_MEAN, dtype=dtype, device=device),
+            torch.tensor(RESNET_STD, dtype=dtype, device=device))
+
+
 class VGGTAggregator(nn.Module):
     def __init__(self, cfg: AggregatorConfig = AggregatorConfig()):
         super().__init__()
@@ -117,8 +127,7 @@ class VGGTAggregator(nn.Module):
         check_flash_limits(dev, cfg.dtype, p_total, c // cfg.num_heads,
                            "AggregatorConfig")
 
-        mean = torch.tensor(RESNET_MEAN, device=dev)
-        std = torch.tensor(RESNET_STD, device=dev)
+        mean, std = _resnet_mean_std(dev, torch.get_default_dtype())
         patch_tokens = self.patch_embed(
             ((images - mean) / std).reshape(b * v, h, w, 3))   # (b*v, p, C)
 

@@ -1,16 +1,18 @@
-"""The flagship encoder's inference forward as a CUDA graph replay.
+"""The encoders' inference forward as a CUDA graph replay: the flagship
+("v2", and v1 through its subclass) and VGGT-1B ("v2l").
 
 On the CPU: the graph path stays off on the CPU, with autograd on and in
 `train()` (the eager forward, bitwise, and no counter moves); `train()`
 and moving the module drop the captured graphs; the constants that the
 forward used to copy from the host on each call equal the old ones in
-value and dtype; the benchmark's reader of the replayed share.
+value and dtype; the benchmark's readers of the replayed share.
 
-On the card (`cuda`), the flagship at 256^2 with 2 + 1 views: a replay
-equals the eager forward bitwise; each signature captures its own
-graph; outputs survive later calls; the counters; a replay's device
-trace holds as many K5 launches as the eager forward's wrappers count.  This file imports torch and
-the port only (no JAX):
+On the card (`cuda`), the flagship at 256^2 and VGGT-1B at 224^2, with
+2 + 1 views: a replay equals the eager forward bitwise; each signature
+captures its own graph; outputs survive later calls; the counters; a
+flagship replay's device trace holds as many K5 launches as the eager
+forward's wrappers count.  This file imports torch and the port only
+(no JAX):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_encoder_graph.py
 """
@@ -40,6 +42,12 @@ from spfsplatv2_tpu_torch.models.encoder_spfsplat import (
     SPFSplatConfig,
     SPFSplatEncoder,
 )
+from spfsplatv2_tpu_torch.models.encoder_vggt import (
+    SPFSplatV2LConfig,
+    SPFSplatV2LEncoder,
+    build_encoder as build_vggt_encoder,
+)
+from spfsplatv2_tpu_torch.models.vggt import aggregator
 from spfsplatv2_tpu_torch.ops import attention, cuda_lib
 from spfsplatv2_tpu_torch.utils import cuda_graph
 
@@ -48,6 +56,7 @@ from torch_port_common import (  # noqa: E402
     TINY_BACKBONE,
     TINY_HEADS,
     cuda_device,  # noqa: F401  (fixture)
+    torch_tiny_vggt_config,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,9 +65,13 @@ FIELDS = ("means", "covariances", "scales", "rotations", "harmonics",
           "opacities")
 
 
-def tiny_encoder(seed=0):
-    enc = SPFSplatV2Encoder(SPFSplatV2Config(
-        backbone=CrocoBackboneConfig(**TINY_BACKBONE), **TINY_HEADS))
+def tiny_encoder(kind="v2", seed=0):
+    """The flagship ("v2") or VGGT-1B ("v2l") at the tiny sizes, seeded."""
+    if kind == "v2":
+        enc = SPFSplatV2Encoder(SPFSplatV2Config(
+            backbone=CrocoBackboneConfig(**TINY_BACKBONE), **TINY_HEADS))
+    else:
+        enc = SPFSplatV2LEncoder(torch_tiny_vggt_config())
     return enc.init_weights(torch.Generator().manual_seed(seed)).eval()
 
 
@@ -91,6 +104,8 @@ def assert_bitwise(a: dict, b: dict):
 
 def eager_pieces(enc, args):
     """The forward as its parts, called one after another."""
+    if isinstance(enc, SPFSplatV2LEncoder):
+        return enc._assemble(*enc._network(*args, None, None), 0)
     pts3d, raw_gs, poses = enc._network(*args, None, None)
     return enc._assemble(pts3d, raw_gs, poses[:, :args[0].shape[1]], poses,
                          0, args[0].shape[1] + args[2].shape[1])
@@ -99,13 +114,19 @@ def eager_pieces(enc, args):
 # ------------------------------------------------------------------ CPU
 
 
-@pytest.mark.parametrize("case", ["cpu", "grad_on", "train_mode"])
-def test_eager_path_where_the_graph_is_off(case, monkeypatch):
+GRAPH_OFF = ("cpu", "grad_on", "train_mode")
+
+
+@pytest.mark.parametrize("kind,case", [
+    *(pytest.param("v2", case, id=case) for case in GRAPH_OFF),
+    *(pytest.param("v2l", case, id=f"v2l-{case}") for case in GRAPH_OFF),
+])
+def test_eager_path_where_the_graph_is_off(kind, case, monkeypatch):
     """On the CPU (and so with autograd on, or in `train()`) the forward
     never enters the graph cache, moves no counter and gives what its
     parts give, bit for bit."""
-    enc = tiny_encoder()
-    args = views(1)
+    enc = tiny_encoder(kind)
+    args = views(1, hw=32 if kind == "v2" else 28)
     with torch.no_grad():
         want = eager_pieces(enc, args)
 
@@ -125,12 +146,13 @@ def test_eager_path_where_the_graph_is_off(case, monkeypatch):
     assert got["pts3d"].requires_grad == (case == "grad_on")
 
 
-@pytest.mark.parametrize("encoder_cls", ["v2", "v1"])
+@pytest.mark.parametrize("encoder_cls", ["v2", "v1", "v2l"])
 def test_train_and_moves_drop_the_graphs(encoder_cls):
     """`eval()` keeps the captured graphs; `train()` and a cast drop them
-    (the v1 encoder, which shares the class but not its `__init__`, too)."""
-    if encoder_cls == "v2":
-        enc = tiny_encoder()
+    (the v1 encoder, which shares the class but not its `__init__`, and
+    VGGT-1B, which shares the mixin, too)."""
+    if encoder_cls in ("v2", "v2l"):
+        enc = tiny_encoder(encoder_cls)
     else:
         enc = SPFSplatEncoder(SPFSplatConfig(
             backbone=CrocoMultiBackboneConfig(**TINY_BACKBONE),
@@ -204,19 +226,46 @@ def test_se3_bottom_row_and_sh_mask_equal_the_old_ones(dtype):
         assert mask.dtype == old_mask.dtype and torch.equal(mask, old_mask)
 
 
-def _encoder_graph_share():
+def test_aggregator_norm_constants_equal_the_old_ones():
+    """The aggregator's ImageNet mean and std, made once a device, equal
+    the tensors each call used to copy from the host, in value and dtype,
+    and the images reach DINOv2 normalised bitwise as before."""
+    old = (torch.tensor(aggregator.RESNET_MEAN),
+           torch.tensor(aggregator.RESNET_STD))
+    got = aggregator._resnet_mean_std(torch.device("cpu"),
+                                      torch.get_default_dtype())
+    assert aggregator._resnet_mean_std(torch.device("cpu"),
+                                       torch.get_default_dtype()) is got
+    for a, b in zip(got, old):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    enc = tiny_encoder("v2l")
+    images = torch.rand((1, 3, 28, 28, 3),
+                        generator=torch.Generator().manual_seed(2))
+    seen = {}
+    enc.aggregator.patch_embed.register_forward_pre_hook(
+        lambda module, inputs: seen.setdefault("images", inputs[0]))
+    with torch.no_grad():
+        enc.aggregator(images, torch.eye(3).expand(1, 3, 3, 3))
+    want = ((images - old[0]) / old[1]).reshape(3, 28, 28, 3)
+    assert torch.equal(seen["images"], want)
+
+
+def _encoder_graph_share(name="serve.encoder_graph_share"):
     from portbench import harness
 
-    return harness.load_metric("serve.encoder_graph_share")
+    return harness.load_metric(name)
 
 
-@pytest.mark.parametrize("kind,launches,want", [
+SHARE_CASES = [
     ("serve", {"encoder_graph_replay": 1.0, "encoder_graph_eager": 0.0}, 100.0),
     ("serve", {"encoder_graph_replay": 3.0, "encoder_graph_eager": 1.0}, 75.0),
     ("serve", {"encoder_graph_replay": 0.0, "encoder_graph_eager": 0.0}, None),
     ("serve", {"flash_forward": 48.0}, None),
     ("train", {"encoder_graph_replay": 0.0, "encoder_graph_eager": 0.0}, None),
-])
+]
+
+
+@pytest.mark.parametrize("kind,launches,want", SHARE_CASES)
 def test_encoder_graph_share_reader(kind, launches, want):
     """The benchmark's reader: replays over graph-eligible forwards in %,
     nothing where neither counter moved or is known."""
@@ -224,19 +273,45 @@ def test_encoder_graph_share_reader(kind, launches, want):
     assert read(SimpleNamespace(kind=kind, launches=launches)) == want
 
 
+@pytest.mark.parametrize("kind,launches,want", SHARE_CASES)
+def test_vggt_encoder_graph_share_reader(kind, launches, want):
+    """VGGT-1B's serving cell reads the same share by the same rule."""
+    read = _encoder_graph_share("serve.encoder_graph_share.v2l")
+    assert read(SimpleNamespace(kind=kind, launches=launches)) == want
+
+
 # ----------------------------------------------------------------- card
 
-HW = 256  # the served size
+HW = 256  # the flagship's served size
+SERVED = {"v2": HW, "v2l": 224}
+
+
+def on_card(build, cfg):
+    """`build(cfg)` on the card, seeded, with TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return build(cfg, seed=0, device="cuda")
 
 
 @pytest.fixture(scope="module")
 def flagship():
     """The flagship encoder (bf16 backbone, float32 heads), seeded."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return build_encoder(SPFSplatV2Config(), seed=0, device="cuda")
+    return on_card(build_encoder, SPFSplatV2Config())
+
+
+@pytest.fixture(scope="module")
+def vggt():
+    """VGGT-1B at full width (bf16 aggregator, float32 heads), seeded."""
+    return on_card(build_vggt_encoder, SPFSplatV2LConfig())
+
+
+@pytest.fixture(params=list(SERVED))
+def served(request):
+    """(encoder, served size) of each graphed encoder."""
+    name = "flagship" if request.param == "v2" else "vggt"
+    return request.getfixturevalue(name), SERVED[request.param]
 
 
 def fresh(enc):
@@ -252,16 +327,18 @@ def counters():
 
 
 @pytest.mark.cuda
-def test_replay_equals_the_eager_forward_bitwise(cuda_device, flagship):
+def test_replay_equals_the_eager_forward_bitwise(cuda_device, served):
     """The first call (eager, before the capture) and the replays equal
-    the eager forward in `train()` bit for bit: poses, Gaussians, pts3d,
-    depths and densities; a view-dropout call likewise: 3 context views,
-    the middle one dropped, as training's dropout keeps the first and the
-    last (with one valid context view left, view 0's cross-attention has
-    no view to attend to, and the eager forward is NaN too)."""
-    enc = fresh(flagship)
-    args = views(5, HW, device=cuda_device)
-    drop = views(5, HW, v_cxt=3, device=cuda_device)
+    the eager forward in `train()` bit for bit: poses, Gaussians, pts3d
+    (and VGGT-1B's confidence), depths and densities; a view-dropout call
+    likewise: 3 context views, the middle one dropped, as training's
+    dropout keeps the first and the last (with one valid context view
+    left, the flagship's view 0 has no view to attend to in its
+    cross-attention, and the eager forward is NaN too)."""
+    enc, hw = served
+    enc = fresh(enc)
+    args = views(5, hw, device=cuda_device)
+    drop = views(5, hw, v_cxt=3, device=cuda_device)
     valid = torch.tensor([True, False, True], device=cuda_device)
     with torch.no_grad():
         enc.train()
@@ -276,16 +353,17 @@ def test_replay_equals_the_eager_forward_bitwise(cuda_device, flagship):
         assert_bitwise(got, want)
     for got in valid_runs:
         assert_bitwise(got, want_valid)
-    assert not want_valid["gaussians"].opacities[:, HW * HW:2 * HW * HW].any()
+    assert not want_valid["gaussians"].opacities[:, hw * hw:2 * hw * hw].any()
     assert counters() == {"encoder_graph_replay": 3, "encoder_graph_eager": 2}
 
 
 @pytest.mark.cuda
-def test_each_signature_captures_its_graph(cuda_device, flagship):
+def test_each_signature_captures_its_graph(cuda_device, served):
     """A new signature (no target view; another size) captures a graph of
     its own and replays it; the first one still replays."""
-    enc = fresh(flagship)
-    full = views(6, HW, device=cuda_device)
+    enc, hw = served
+    enc = fresh(enc)
+    full = views(6, hw, device=cuda_device)
     with torch.no_grad():
         for _ in range(2):
             enc(*full)
@@ -294,7 +372,7 @@ def test_each_signature_captures_its_graph(cuda_device, flagship):
             ctx_only = enc(*full[:2])
         assert len(enc._graph_cache) == 2
         for _ in range(2):
-            enc(*views(6, HW // 2, device=cuda_device))
+            enc(*views(6, hw // 2, device=cuda_device))
         assert len(enc._graph_cache) == 3
         enc(*full)
         enc.train()
@@ -306,15 +384,16 @@ def test_each_signature_captures_its_graph(cuda_device, flagship):
 
 
 @pytest.mark.cuda
-def test_outputs_do_not_alias_the_graph(cuda_device, flagship):
+def test_outputs_do_not_alias_the_graph(cuda_device, served):
     """What a replay returns stays as it was after later replays on other
     views (nothing returned lies in the graph's memory)."""
-    enc = fresh(flagship)
+    enc, hw = served
+    enc = fresh(enc)
     with torch.no_grad():
-        enc(*views(7, HW, device=cuda_device))
-        out1 = enc(*views(8, HW, device=cuda_device))
+        enc(*views(7, hw, device=cuda_device))
+        out1 = enc(*views(8, hw, device=cuda_device))
         kept = {k: v.clone() for k, v in flat(out1).items()}
-        out2 = enc(*views(9, HW, device=cuda_device))
+        out2 = enc(*views(9, hw, device=cuda_device))
     torch.cuda.synchronize()
     for name, v in flat(out1).items():
         assert torch.equal(v, kept[name]), name
@@ -326,12 +405,13 @@ def test_outputs_do_not_alias_the_graph(cuda_device, flagship):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["grad_on", "train_mode"])
-def test_graph_stays_off_with_autograd_or_in_training(cuda_device, flagship,
+def test_graph_stays_off_with_autograd_or_in_training(cuda_device, served,
                                                       case):
     """On the card, autograd on or `train()` runs the eager forward: no
     graph, no counter moves."""
-    enc = fresh(flagship)
-    args = views(10, HW, device=cuda_device)
+    enc, hw = served
+    enc = fresh(enc)
+    args = views(10, hw, device=cuda_device)
     if case == "train_mode":
         enc.train()
     with (torch.enable_grad() if case == "grad_on" else torch.no_grad()):
