@@ -1353,15 +1353,13 @@ def f32_phases(torch, dev, request, train_batch, lpips, gen) -> dict:
         EvalConfig,
         evaluate_example,
     )
+    from spfsplatv2_tpu_torch.models import build_encoder
     from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
     from spfsplatv2_tpu_torch.models.decoder import (
         LONG_CONTEXT_DECODER,
         decode_splatting,
     )
-    from spfsplatv2_tpu_torch.models.encoder import (
-        SPFSplatV2Config,
-        build_encoder,
-    )
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
     from spfsplatv2_tpu_torch.training import loop
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
@@ -2607,10 +2605,8 @@ def ddp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
-    from spfsplatv2_tpu_torch.models.encoder import (
-        SPFSplatV2Config,
-        build_encoder,
-    )
+    from spfsplatv2_tpu_torch.models import build_encoder
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from spfsplatv2_tpu_torch.ops import cuda_lib
     from spfsplatv2_tpu_torch.parallel import make_mesh, shard_batch
     from spfsplatv2_tpu_torch.parallel.mesh import audit_overlap
@@ -2860,14 +2856,12 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
         evaluate_example,
     )
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
+    from spfsplatv2_tpu_torch.models import build_encoder
     from spfsplatv2_tpu_torch.models.decoder import (
         LONG_CONTEXT_DECODER,
         DecoderConfig,
     )
-    from spfsplatv2_tpu_torch.models.encoder import (
-        SPFSplatV2Config,
-        build_encoder,
-    )
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from spfsplatv2_tpu_torch.ops import cuda_lib
     from spfsplatv2_tpu_torch.ops.rasterizer import render
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
@@ -3340,12 +3334,13 @@ def main() -> int:
         disable_tf32,
         evaluate_example,
     )
+    from spfsplatv2_tpu_torch.models import build_encoder
     from spfsplatv2_tpu_torch.models.decoder import (
         LONG_CONTEXT_DECODER,
         DecoderConfig,
         decode_splatting,
     )
-    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
     from spfsplatv2_tpu_torch.ops import attention, cuda_lib, raster_cuda
     from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians

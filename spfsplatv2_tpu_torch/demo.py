@@ -23,12 +23,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spfsplatv2_tpu_torch.models import build_encoder
 from spfsplatv2_tpu_torch.models.decoder import DecoderConfig
-from spfsplatv2_tpu_torch.models.encoder import (
-    SPFSplatV2Config,
-    SPFSplatV2Encoder,
-    build_encoder,
-)
+from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, SPFSplatV2Encoder
 from spfsplatv2_tpu_torch.ops.raster_tiled import TILE, rank_key_bits
 
 

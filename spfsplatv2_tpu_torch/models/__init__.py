@@ -5,7 +5,8 @@
 surface is `encoder.name=... encoder.<name>.<field>=...`) and
 `get_encoder` builds the chosen variant: "spfsplat" (v1, the unmasked
 CroCo backbone), the flagship "spfsplatv2" (masked CroCo backbone) or
-"spfsplatv2l" (VGGT-1B).
+"spfsplatv2l" (VGGT-1B).  `build_encoder` builds the encoder of a
+variant's config.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
 from spfsplatv2_tpu_torch.models.encoder_spfsplat import SPFSplatConfig
 from spfsplatv2_tpu_torch.models.encoder_vggt import SPFSplatV2LConfig
 
-_BUILDERS = {"spfsplat": encoder_spfsplat.build_encoder,
-             "spfsplatv2": encoder.build_encoder,
-             "spfsplatv2l": encoder_vggt.build_encoder}
-ENCODERS = tuple(_BUILDERS)
+_ENCODERS = {SPFSplatConfig: encoder_spfsplat.SPFSplatEncoder,
+             SPFSplatV2Config: encoder.SPFSplatV2Encoder,
+             SPFSplatV2LConfig: encoder_vggt.SPFSplatV2LEncoder}
+ENCODERS = ("spfsplat", "spfsplatv2", "spfsplatv2l")
 
 
 @dataclass(frozen=True)
@@ -41,8 +42,19 @@ class EncoderSelectorConfig:
         return getattr(self, self.name)
 
 
+def build_encoder(cfg, seed: int = 0, device: str | torch.device = "cuda"):
+    """The encoder of a variant's config, constructed on `device`,
+    initialised from a seeded `torch.Generator` on that device, in
+    `eval()`."""
+    device = torch.device(device)
+    with device:
+        model = _ENCODERS[type(cfg)](cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return model.init_weights(gen).eval()
+
+
 def get_encoder(cfg: EncoderSelectorConfig, seed: int = 0,
                 device: str | torch.device = "cuda"):
     """Build the configured encoder on `device`, initialised from a
-    seeded generator (each variant's `build_encoder`)."""
-    return _BUILDERS[cfg.name](cfg.variant_cfg, seed=seed, device=device)
+    seeded generator."""
+    return build_encoder(cfg.variant_cfg, seed=seed, device=device)

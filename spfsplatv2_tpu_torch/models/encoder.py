@@ -9,39 +9,35 @@ the unified Gaussian adapter.  `remat_heads` recomputes the DPT heads in
 the backward pass (activation checkpointing, only while autograd
 records), as the JAX config does.  In inference on the card (autograd
 off, `eval()`) the backbone and heads replay a CUDA graph captured once
-an input signature (`utils/cuda_graph.py`).  `estimating_focal` adds the
-intrinsics estimated from view 0's pointmap (`intrinsics_cwt`).  The
-SPFSplat v1 encoder (`encoder_spfsplat.py`) shares the heads, their
-seeded init, the pose post-processing and the Gaussian assembly.
+an input signature (`encoder_base.py:GraphedEncoder`).
+`estimating_focal` adds the intrinsics estimated from view 0's pointmap
+(`intrinsics_cwt`).  `CrocoHeads` holds the heads, their seeded init and
+the pose post-processing, which the SPFSplat v1 encoder
+(`encoder_spfsplat.py`) shares; the forward, the Gaussian assembly and
+the pose normalisation are every encoder's (`encoder_base.py`).
 
 Weights come from `utils/from_flax.py` (a flax param tree) or from
 `init_weights(generator)`, a seeded init with the flax initializers'
 rules (LeCun truncated normal, the heads' calibrated output layers).
 """
-
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from spfsplatv2_tpu_torch.geometry import se3
 from spfsplatv2_tpu_torch.geometry.intrinsics import estimate_intrinsics
-from spfsplatv2_tpu_torch.models.adapter import (
-    map_pdf_to_opacity,
-    raw_gaussian_channels,
-    unified_gaussian_adapter,
-)
+from spfsplatv2_tpu_torch.models.adapter import raw_gaussian_channels
 from spfsplatv2_tpu_torch.models.croco.backbone import (
     CrocoBackboneConfig,
     MaskedCrocoBackbone,
 )
+from spfsplatv2_tpu_torch.models.encoder_base import GraphedEncoder
 from spfsplatv2_tpu_torch.models.heads.dpt import DPTGSHead, DPTHead
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHead, PoseHeadConfig
 from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
-from spfsplatv2_tpu_torch.utils.cuda_graph import GraphedNetwork
 from spfsplatv2_tpu_torch.utils.init import lecun_normal_
 from spfsplatv2_tpu_torch.utils.profiling import span
 
@@ -80,13 +76,12 @@ class SPFSplatV2Config:
     remat_heads: bool = True
 
 
-class SPFSplatV2Encoder(GraphedNetwork, nn.Module):
-    def __init__(self, cfg: SPFSplatV2Config = SPFSplatV2Config()):
-        super().__init__()
-        self.cfg = cfg
-        bb = cfg.backbone
-        self.backbone = MaskedCrocoBackbone(bb)
-        self._build_heads(bb.dec_embed_dim)
+class CrocoHeads:
+    """The CroCo encoders' heads (the flagship's and v1's): dual DPT
+    pointmap and Gaussian heads over the context views and, with
+    `estimating_pose`, dual MLP pose heads; their seeded init, their
+    forward, the pose post-processing and, with `estimating_focal`, the
+    estimated intrinsics.  List it before `Encoder`."""
 
     def _build_heads(self, pose_dim: int) -> None:
         """The dual DPT pointmap and Gaussian heads (on the encoder
@@ -108,23 +103,7 @@ class SPFSplatV2Encoder(GraphedNetwork, nn.Module):
             if cfg.estimating_pose:
                 setattr(self, f"pose_head{s}", PoseHead(pose_dim, cfg.pose_head))
 
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "SPFSplatV2Encoder":
-        """Seeded init following the flax module's initializers."""
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                lecun_normal_(mod.weight, generator,
-                              transposed=isinstance(mod, nn.ConvTranspose2d))
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-        if (isinstance(self.backbone, MaskedCrocoBackbone)
-                and self.cfg.backbone.pose_token):
-            pt = self.backbone.pose_token
-            pt.copy_(torch.randn(pt.shape, generator=generator,
-                                 device=pt.device))
+    def _init_own(self, generator: torch.Generator) -> None:
         for s in ("1", "2"):
             # Calibrated from-scratch output layers (see the JAX heads).
             pts = getattr(self, f"downstream_head{s}").head_out
@@ -138,7 +117,6 @@ class SPFSplatV2Encoder(GraphedNetwork, nn.Module):
                     ph.fc_t.weight.zero_()
                 ph.fc_rot.weight.zero_()
                 ph.fc_rot.bias.copy_(torch.tensor([1.0, 0, 0, 0, 1.0, 0]))
-        return self
 
     def _run_dual_heads(self, prefix, dec_feat, grid, remat, extra=None):
         """head1 on view 0, head2 on views 1..v-1, recomputed in the
@@ -164,147 +142,68 @@ class SPFSplatV2Encoder(GraphedNetwork, nn.Module):
         return torch.cat([out1.reshape(b, 1, *out1.shape[1:]),
                           out2.reshape(b, v - 1, *out2.shape[1:])], dim=1)
 
-    def forward(
-        self,
-        context_images: torch.Tensor,      # (b, v_cxt, h, w, 3) in [0, 1]
-        context_intrinsics: torch.Tensor,  # (b, v_cxt, 3, 3) normalized
-        target_images: torch.Tensor | None = None,
-        target_intrinsics: torch.Tensor | None = None,
-        global_step: int = 0,
-        context_valid: torch.Tensor | None = None,  # (v_cxt,)
-        target_valid: torch.Tensor | None = None,   # (v_tgt,)
-    ) -> dict:
-        """The backbone and heads run as one CUDA graph replay in
-        inference (CUDA inputs, autograd off, `eval()`: `_run_network`), and
-        eagerly otherwise; the Gaussians are assembled eagerly."""
-        pts3d, raw_gs, poses = self._run_network(
-            (context_images, context_intrinsics, target_images,
-             target_intrinsics, context_valid, target_valid))
-        v_cxt = context_images.shape[1]
-        v_tgt = 0 if target_images is None else target_images.shape[1]
-        with span("encoder.gaussians"):
-            return self._assemble(
-                pts3d, raw_gs, None if poses is None else poses[:, :v_cxt],
-                poses, global_step, v_cxt + v_tgt, context_valid)
+    def _dpt_heads(self, dec_feat, grid, images, remat):
+        """The context views' decoder features and normalised images ->
+        (pts3d (b, v_cxt, h, w, 3), the raw Gaussian channels)."""
+        raw_pts = self._run_dual_heads("downstream_head", dec_feat, grid,
+                                       remat)
+        return (pts3d_postprocess(raw_pts, mode="exp"),
+                self._run_dual_heads("gaussian_param_head", dec_feat, grid,
+                                     remat, extra=images))
 
-    def _network(self, context_images, context_intrinsics, target_images,
-                 target_intrinsics, context_valid, target_valid):
-        """Normalisation, backbone and heads -> (pts3d (b, v_cxt, h, w, 3),
-        the raw Gaussian channels (b, v_cxt, h, w, c), every view's c2w
-        pose (b, v, 4, 4) or None without `estimating_pose`)."""
-        cfg = self.cfg
-        v_cxt = context_images.shape[1]
-        v_tgt = 0 if target_images is None else target_images.shape[1]
-        dev = context_images.device
-
-        with span("encoder.backbone"):
-            images, intrinsics = context_images, context_intrinsics
-            if v_tgt:
-                images = torch.cat([context_images, target_images], dim=1)
-                intrinsics = torch.cat([context_intrinsics, target_intrinsics],
-                                       dim=1)
-            images = (images - cfg.input_mean) / cfg.input_std
-
-            view_valid = None
-            if context_valid is not None or target_valid is not None:
-                cv = (torch.ones((v_cxt,), device=dev) if context_valid is None
-                      else context_valid.to(torch.float32))
-                tv = (torch.ones((v_tgt,), device=dev) if target_valid is None
-                      else target_valid.to(torch.float32))
-                view_valid = torch.cat([cv, tv]) if v_tgt else cv
-
-            out = self.backbone(images, intrinsics, num_target=v_tgt,
-                                view_valid=view_valid)
-        with span("encoder.heads"):
-            dec_feat, pose_feat, grid = (out["dec_feat"], out["pose_feat"],
-                                         out["grid"])
-            ctx_feat = [t[:, :v_cxt] for t in dec_feat]
-            raw_pts = self._run_dual_heads("downstream_head", ctx_feat, grid,
-                                           cfg.remat_heads)
-            # (b, v_cxt, h, w, 3)
-            pts3d = pts3d_postprocess(raw_pts, mode="exp")
-            raw_gs = self._run_dual_heads("gaussian_param_head", ctx_feat,
-                                          grid, cfg.remat_heads,
-                                          extra=images[:, :v_cxt])
-            poses = None
-            if cfg.estimating_pose:
-                poses = self._process_pose(self._pose_pass(pose_feat[-1]),
-                                           v_cxt)
-        return pts3d, raw_gs, poses
-
-    def _pose_pass(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _pose_pass(self, tokens: torch.Tensor, v_cxt: int) -> torch.Tensor:
         """tokens (b, v, n, c), pooled over n by the heads: head 1 on
-        view 0, head 2 on the rest -> 9D encodings (b, v, 9)."""
+        view 0, head 2 on the rest -> normalised c2w poses (b, v, 4, 4)."""
         b, v = tokens.shape[:2]
         p1 = self.pose_head1(tokens[:, 0])
         p2 = self.pose_head2(tokens[:, 1:].reshape(b * (v - 1), *tokens.shape[2:]))
-        return torch.cat([p1[:, None], p2.reshape(b, v - 1, 9)], dim=1)
+        pose_enc = torch.cat([p1[:, None], p2.reshape(b, v - 1, 9)], dim=1)
+        return self._normalize_poses(se3.pose_encoding_to_matrix(pose_enc),
+                                     v_cxt)
 
-    def _assemble(self, pts3d, raw_gs, extrinsics_c, extrinsics_cwt,
-                  global_step, v_all: int, context_valid=None) -> dict:
-        """The encoder's output dict: Gaussians from the context views'
-        points and raw head channels (opacities zeroed for dropped context
-        views), depths from the context poses, and with `estimating_focal`
-        view 0's estimated intrinsics for all `v_all` views."""
-        cfg = self.cfg
-        b, v_cxt, h, w, _ = pts3d.shape
-        gs_dim = raw_gs.shape[-1]
-        densities = torch.sigmoid(raw_gs[..., 0])
-        om = cfg.opacity_mapping
-        opacities = map_pdf_to_opacity(densities, global_step, om.initial,
-                                       om.final, om.warm_up)
-        if context_valid is not None:
-            opacities = opacities * context_valid.to(opacities.dtype)[
-                None, :, None, None
-            ]
-        gaussians = unified_gaussian_adapter(
-            pts3d.reshape(b, v_cxt, h * w, 3),
-            opacities.reshape(b, v_cxt, h * w),
-            raw_gs[..., 1:].reshape(b, v_cxt, h * w, gs_dim - 1),
-            sh_degree=cfg.sh_degree,
-        ).flatten_views()
-
-        depths = None
-        if extrinsics_c is not None:
-            depths = se3.depth_from_pose(
-                pts3d.reshape(b, v_cxt, h * w, 3), extrinsics_c
-            ).reshape(b, v_cxt, h, w)
-        out = {
-            "gaussians": gaussians,
-            "extrinsics_c": extrinsics_c,
-            "extrinsics_cwt": extrinsics_cwt,
-            "pts3d": pts3d,
-            "depths": depths,
-            "densities": densities,
-        }
-        if cfg.estimating_focal:
+    def _assemble(self, pts3d, *net, v_all: int, **kw) -> dict:
+        """With `estimating_focal`, also view 0's estimated intrinsics for
+        all `v_all` views."""
+        out = super()._assemble(pts3d, *net, v_all=v_all, **kw)
+        if self.cfg.estimating_focal:
             # View 0's camera frame is the world frame after the relative
             # normalization; its focal holds for every view.
             k_pred = estimate_intrinsics(pts3d)
-            out["intrinsics_cwt"] = k_pred[:, None].expand(b, v_all, 3, 3)
+            out["intrinsics_cwt"] = k_pred[:, None].expand(
+                pts3d.shape[0], v_all, 3, 3)
         return out
 
-    def _process_pose(self, pose_enc: torch.Tensor, v_cxt: int) -> torch.Tensor:
-        """9D encodings -> c2w poses, baseline-1 / relative normalization."""
-        poses = se3.pose_encoding_to_matrix(pose_enc)       # (b, v, 4, 4)
-        if self.cfg.pose_make_baseline_1:
-            a = poses[:, 0, :3, 3]
-            c = poses[:, v_cxt - 1, :3, 3]
-            scale = torch.linalg.norm(a - c, dim=-1)[:, None, None]
-            t = poses[:, :, :3, 3:] / torch.clamp(scale, min=1e-8)[..., None]
-            poses = torch.cat([torch.cat([poses[:, :, :3, :3], t], dim=-1),
-                               poses[:, :, 3:]], dim=-2)
-        if self.cfg.pose_make_relative:
-            poses = se3.camera_normalization(poses[:, 0:1], poses)
-        return poses
 
+class SPFSplatV2Encoder(CrocoHeads, GraphedEncoder):
+    def __init__(self, cfg: SPFSplatV2Config = SPFSplatV2Config()):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = MaskedCrocoBackbone(cfg.backbone)
+        self._build_heads(cfg.backbone.dec_embed_dim)
 
-def build_encoder(cfg: SPFSplatV2Config = SPFSplatV2Config(), seed: int = 0,
-                  device: str | torch.device = "cuda") -> SPFSplatV2Encoder:
-    """Construct the encoder on `device` and initialise it from a seeded
-    `torch.Generator` on that device."""
-    device = torch.device(device)
-    with device:
-        model = SPFSplatV2Encoder(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return model.init_weights(gen).eval()
+    def _init_own(self, generator: torch.Generator) -> None:
+        if self.cfg.backbone.pose_token:
+            pt = self.backbone.pose_token
+            pt.copy_(torch.randn(pt.shape, generator=generator,
+                                 device=pt.device))
+        super()._init_own(generator)
+
+    def _network(self, *views):
+        """Normalisation, backbone and heads -> (pts3d, the raw Gaussian
+        channels, every view's c2w pose or None without
+        `estimating_pose`)."""
+        cfg = self.cfg
+        v_cxt = views[0].shape[1]
+        with span("encoder.backbone"):
+            images, intrinsics, v_tgt, view_valid = self._views(*views)
+            images = (images - cfg.input_mean) / cfg.input_std
+            out = self.backbone(images, intrinsics, num_target=v_tgt,
+                                view_valid=view_valid)
+        with span("encoder.heads"):
+            pts3d, raw_gs = self._dpt_heads(
+                [t[:, :v_cxt] for t in out["dec_feat"]], out["grid"],
+                images[:, :v_cxt], cfg.remat_heads)
+            poses = None
+            if cfg.estimating_pose:
+                poses = self._pose_pass(out["pose_feat"][-1], v_cxt)
+        return pts3d, raw_gs, poses

@@ -10,7 +10,9 @@ concatenated, with homogeneous 4D translation and an un-zeroed `fc_t`.
 Poses are rescaled to a unit baseline between views 0 and v_cxt - 1,
 then made relative to view 0.  Both pose sets come back:
 `extrinsics_c` from the context-only pass and `extrinsics_cwt` from the
-pass with targets; the v1 loss reads both.
+pass with targets; the v1 loss reads both.  The forward, the Gaussian
+assembly and the pose normalisation are every encoder's
+(`encoder_base.py`); v1 takes no view masks and no CUDA graph.
 """
 
 from __future__ import annotations
@@ -23,12 +25,9 @@ from spfsplatv2_tpu_torch.models.croco.backbone_multi import (
     CrocoMultiBackbone,
     CrocoMultiBackboneConfig,
 )
-from spfsplatv2_tpu_torch.models.encoder import (
-    OpacityMappingConfig,
-    SPFSplatV2Encoder,
-)
+from spfsplatv2_tpu_torch.models.encoder import CrocoHeads, OpacityMappingConfig
+from spfsplatv2_tpu_torch.models.encoder_base import Encoder
 from spfsplatv2_tpu_torch.models.heads.pose_head import PoseHeadConfig
-from spfsplatv2_tpu_torch.models.heads.postprocess import pts3d_postprocess
 from spfsplatv2_tpu_torch.utils.profiling import span
 
 
@@ -57,70 +56,49 @@ class SPFSplatConfig:
     input_std: float = 0.5
 
 
-class SPFSplatEncoder(SPFSplatV2Encoder):
-    """The flagship's heads, init, pose post-processing and Gaussian
-    assembly over the unmasked backbone."""
+class SPFSplatEncoder(CrocoHeads, Encoder):
+    """The flagship's heads over the unmasked backbone.
+
+    Eager in every mode: its serving metric `serve.masked_logits_gib`
+    reads a host-side counter (`ops/attention.py:sdpa_view_masked`) that
+    a graph replay would not add to, and at 1024^2 its request keeps the
+    card over 90% busy, which leaves a replay little host time to win."""
 
     def __init__(self, cfg: SPFSplatConfig = SPFSplatConfig()):
-        torch.nn.Module.__init__(self)
+        super().__init__()
         self.cfg = cfg
         bb = cfg.backbone
         self.backbone = CrocoMultiBackbone(bb)
         self._build_heads(bb.enc_embed_dim + bb.dec_embed_dim)
 
-    def forward(
-        self,
-        context_images: torch.Tensor,      # (b, v_cxt, h, w, 3) in [0, 1]
-        context_intrinsics: torch.Tensor,  # (b, v_cxt, 3, 3) normalized
-        target_images: torch.Tensor | None = None,
-        target_intrinsics: torch.Tensor | None = None,
-        global_step: int = 0,
-    ) -> dict:
+    def _network(self, *views):
+        """Normalisation, backbone and heads -> (pts3d, the raw Gaussian
+        channels, the c2w poses of the pass with targets, those of the
+        context-only pass; both None without `estimating_pose`)."""
         cfg = self.cfg
-        v_cxt = context_images.shape[1]
-        v_tgt = 0 if target_images is None else target_images.shape[1]
+        v_cxt = views[0].shape[1]
         with span("encoder.backbone"):
-            images, intrinsics = context_images, context_intrinsics
-            if v_tgt:
-                images = torch.cat([context_images, target_images], dim=1)
-                intrinsics = torch.cat([context_intrinsics, target_intrinsics],
-                                       dim=1)
+            images, intrinsics, v_tgt, view_valid = self._views(*views)
+            if view_valid is not None:
+                raise TypeError("the SPFSplat v1 encoder drops no views: "
+                                "it takes no context_valid or target_valid")
             images = (images - cfg.input_mean) / cfg.input_std
-
             out = self.backbone(images, intrinsics, num_target=v_tgt)
         with span("encoder.heads"):
-            dec_feat, grid = out["dec_feat"], out["grid"]
+            dec_feat = out["dec_feat"]
             # As in JAX, v1's heads keep their activations (no recompute).
-            raw_pts = self._run_dual_heads("downstream_head", dec_feat, grid,
-                                           remat=False)
-            # (b, v_cxt, h, w, 3)
-            pts3d = pts3d_postprocess(raw_pts, mode="exp")
-            raw_gs = self._run_dual_heads("gaussian_param_head", dec_feat,
-                                          grid, remat=False,
-                                          extra=images[:, :v_cxt])
-
+            pts3d, raw_gs = self._dpt_heads(dec_feat, out["grid"],
+                                            images[:, :v_cxt], remat=False)
             extrinsics_c = extrinsics_cwt = None
             if cfg.estimating_pose:
                 def poses(feats):
                     tokens = torch.cat([feats[0], feats[-1]], dim=-1)
-                    return self._process_pose(self._pose_pass(tokens), v_cxt)
+                    return self._pose_pass(tokens, v_cxt)
 
                 extrinsics_c = extrinsics_cwt = poses(dec_feat)
                 if out["dec_feat_w_tgt"] is not None:
                     extrinsics_cwt = poses(out["dec_feat_w_tgt"])
-        with span("encoder.gaussians"):
-            result = self._assemble(pts3d, raw_gs, extrinsics_c,
-                                    extrinsics_cwt, global_step, v_cxt + v_tgt)
-        result["variant"] = "spfsplat"
-        return result
+        return pts3d, raw_gs, extrinsics_cwt, extrinsics_c
 
-
-def build_encoder(cfg: SPFSplatConfig = SPFSplatConfig(), seed: int = 0,
-                  device: str | torch.device = "cuda") -> SPFSplatEncoder:
-    """Construct the encoder on `device` and initialise it from a seeded
-    `torch.Generator` on that device."""
-    device = torch.device(device)
-    with device:
-        model = SPFSplatEncoder(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return model.init_weights(gen).eval()
+    def _assemble(self, *net, **kw) -> dict:
+        return {**super()._assemble(*net, **kw), "variant": "spfsplat"}

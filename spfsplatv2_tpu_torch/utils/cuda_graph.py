@@ -21,8 +21,8 @@ launches and those the capture records; a replay calls no wrapper, so the
 kernels it launches show in a device trace only.  The graphs and their
 memory pools live as long as the cache.
 
-`GraphedNetwork` is the encoders' side of it (the flagship, v1 through
-its subclass, and VGGT-1B): when `_network` takes the graphs, and the
+`models/encoder_base.py:GraphedEncoder` is the encoders' side of it (the
+flagship's and VGGT-1B's): when `_network` takes the graphs, and the
 cache's lifecycle on the module.
 """
 
@@ -65,39 +65,6 @@ class EncoderGraphs:
                             for t in static_out)
         cuda_lib.launch_counts["encoder_graph_replay"] += 1
         return out
-
-
-class GraphedNetwork:
-    """Mixin of an encoder `nn.Module` whose `_network(*args)` (its
-    backbone and heads: tensors or None in, a tuple of tensors or None
-    out) replays `EncoderGraphs` in inference on the card.  List it
-    before `nn.Module` among the bases."""
-
-    def _run_network(self, args: tuple) -> tuple:
-        """`self._network(*args)`, from a graph replay in inference (CUDA
-        inputs, autograd off, `eval()`) and eagerly otherwise."""
-        if (args[0].is_cuda and not torch.is_grad_enabled()
-                and not self.training):
-            return self._graphs()(self._network, args)
-        return self._network(*args)
-
-    def _graphs(self) -> EncoderGraphs:
-        """The captured inference forwards, one a signature (made at first
-        use; `train()` and moving or casting the module drop them)."""
-        if getattr(self, "_graph_cache", None) is None:
-            self._graph_cache = EncoderGraphs()
-        return self._graph_cache
-
-    def train(self, mode: bool = True):
-        """As `nn.Module.train`; entering training drops the graphs."""
-        if mode:
-            self._graph_cache = None
-        return super().train(mode)
-
-    def _apply(self, fn, recurse=True):
-        # The graphs read the parameters where they were at capture.
-        self._graph_cache = None
-        return super()._apply(fn, recurse)
 
 
 def _warm_up_and_capture(fn, args: tuple):

@@ -19,8 +19,9 @@ import torch
 from spfsplatv2_tpu.training import optim as joptim
 from spfsplatv2_tpu_torch.config import load_config
 from spfsplatv2_tpu_torch.data.synthetic import write_synthetic_dataset
+from spfsplatv2_tpu_torch.models import build_encoder
 from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
-from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
+from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
 from spfsplatv2_tpu_torch.training import loop
 from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
 from spfsplatv2_tpu_torch.training.step import (

@@ -257,7 +257,8 @@ def test_seeded_init_is_reproducible_and_calibrated():
     """`build_encoder` on the CPU: same seed, same weights; the output
     layers start where the flax initializers put them."""
     from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
-    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config, build_encoder
+    from spfsplatv2_tpu_torch.models import build_encoder
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from torch_port_common import TINY_BACKBONE, TINY_HEADS
 
     cfg = SPFSplatV2Config(backbone=CrocoBackboneConfig(**TINY_BACKBONE),

@@ -1,9 +1,10 @@
 """The encoders' inference forward as a CUDA graph replay: the flagship
-("v2", and v1 through its subclass) and VGGT-1B ("v2l").
+("v2") and VGGT-1B ("v2l"); v1 stays eager by design.
 
 On the CPU: the graph path stays off on the CPU, with autograd on and in
 `train()` (the eager forward, bitwise, and no counter moves); `train()`
-and moving the module drop the captured graphs; the constants that the
+and moving the module drop the captured graphs; v1 never makes or enters
+a graph cache and refuses view masks; the constants that the
 forward used to copy from the host on each call equal the old ones in
 value and dtype; the benchmark's readers of the replayed share.
 
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 from spfsplatv2_tpu_torch.geometry import se3
-from spfsplatv2_tpu_torch.models import adapter
+from spfsplatv2_tpu_torch.models import adapter, build_encoder
 from spfsplatv2_tpu_torch.models.croco.backbone import (
     CrocoBackboneConfig,
     MaskedCrocoBackbone,
@@ -36,7 +37,6 @@ from spfsplatv2_tpu_torch.models.croco.backbone_multi import (
 from spfsplatv2_tpu_torch.models.encoder import (
     SPFSplatV2Config,
     SPFSplatV2Encoder,
-    build_encoder,
 )
 from spfsplatv2_tpu_torch.models.encoder_spfsplat import (
     SPFSplatConfig,
@@ -45,7 +45,6 @@ from spfsplatv2_tpu_torch.models.encoder_spfsplat import (
 from spfsplatv2_tpu_torch.models.encoder_vggt import (
     SPFSplatV2LConfig,
     SPFSplatV2LEncoder,
-    build_encoder as build_vggt_encoder,
 )
 from spfsplatv2_tpu_torch.models.vggt import aggregator
 from spfsplatv2_tpu_torch.ops import attention, cuda_lib
@@ -66,10 +65,15 @@ FIELDS = ("means", "covariances", "scales", "rotations", "harmonics",
 
 
 def tiny_encoder(kind="v2", seed=0):
-    """The flagship ("v2") or VGGT-1B ("v2l") at the tiny sizes, seeded."""
+    """The flagship ("v2"), v1 ("v1") or VGGT-1B ("v2l") at the tiny
+    sizes, seeded."""
     if kind == "v2":
         enc = SPFSplatV2Encoder(SPFSplatV2Config(
             backbone=CrocoBackboneConfig(**TINY_BACKBONE), **TINY_HEADS))
+    elif kind == "v1":
+        enc = SPFSplatEncoder(SPFSplatConfig(
+            backbone=CrocoMultiBackboneConfig(**TINY_BACKBONE),
+            **TINY_HEADS))
     else:
         enc = SPFSplatV2LEncoder(torch_tiny_vggt_config())
     return enc.init_weights(torch.Generator().manual_seed(seed)).eval()
@@ -104,11 +108,16 @@ def assert_bitwise(a: dict, b: dict):
 
 def eager_pieces(enc, args):
     """The forward as its parts, called one after another."""
-    if isinstance(enc, SPFSplatV2LEncoder):
-        return enc._assemble(*enc._network(*args, None, None), 0)
-    pts3d, raw_gs, poses = enc._network(*args, None, None)
-    return enc._assemble(pts3d, raw_gs, poses[:, :args[0].shape[1]], poses,
-                         0, args[0].shape[1] + args[2].shape[1])
+    return enc._assemble(*enc._network(*args, None, None), global_step=0,
+                         v_all=args[0].shape[1] + args[2].shape[1])
+
+
+def refuse_the_graph_cache(monkeypatch):
+    """Make entering the graph cache fail the test."""
+    def refuse(*a, **k):
+        raise AssertionError("the graph cache was entered")
+
+    monkeypatch.setattr(cuda_graph.EncoderGraphs, "__call__", refuse)
 
 
 # ------------------------------------------------------------------ CPU
@@ -130,10 +139,7 @@ def test_eager_path_where_the_graph_is_off(kind, case, monkeypatch):
     with torch.no_grad():
         want = eager_pieces(enc, args)
 
-    def refuse(*a, **k):
-        raise AssertionError("the graph cache was entered")
-
-    monkeypatch.setattr(cuda_graph.EncoderGraphs, "__call__", refuse)
+    refuse_the_graph_cache(monkeypatch)
     cuda_lib.reset_launch_counts()
     if case == "train_mode":
         enc.train()
@@ -146,17 +152,30 @@ def test_eager_path_where_the_graph_is_off(kind, case, monkeypatch):
     assert got["pts3d"].requires_grad == (case == "grad_on")
 
 
-@pytest.mark.parametrize("encoder_cls", ["v2", "v1", "v2l"])
-def test_train_and_moves_drop_the_graphs(encoder_cls):
+@pytest.mark.parametrize("encoder_cls", [
+    "v2", "v1", pytest.param("v1-card", marks=pytest.mark.cuda), "v2l"])
+def test_train_and_moves_drop_the_graphs(encoder_cls, request, monkeypatch):
     """`eval()` keeps the captured graphs; `train()` and a cast drop them
-    (the v1 encoder, which shares the class but not its `__init__`, and
-    VGGT-1B, which shares the mixin, too)."""
-    if encoder_cls in ("v2", "v2l"):
-        enc = tiny_encoder(encoder_cls)
-    else:
-        enc = SPFSplatEncoder(SPFSplatConfig(
-            backbone=CrocoMultiBackboneConfig(**TINY_BACKBONE),
-            **TINY_HEADS)).eval()
+    (the flagship and VGGT-1B).  v1, eager by design, never makes or
+    enters a graph cache: in `eval()` with autograd off, on the CPU and
+    on the card, and after `train()` and a cast."""
+    if encoder_cls.startswith("v1"):
+        device = "cpu"
+        if encoder_cls == "v1-card":
+            device = request.getfixturevalue("cuda_device")
+        enc = tiny_encoder("v1").to(device)
+        refuse_the_graph_cache(monkeypatch)
+        cuda_lib.reset_launch_counts()
+        with torch.no_grad():
+            out = enc(*views(1, device=device))
+        enc.train()
+        enc.double()
+        assert out["variant"] == "spfsplat"
+        assert not hasattr(enc, "_graphs")
+        assert getattr(enc, "_graph_cache", None) is None
+        assert all(cuda_lib.launch_counts[c] == 0 for c in COUNTERS)
+        return
+    enc = tiny_encoder(encoder_cls)
     cache = enc._graphs()
     assert enc._graphs() is cache and len(cache) == 0
     enc.eval()
@@ -167,6 +186,17 @@ def test_train_and_moves_drop_the_graphs(encoder_cls):
     cache = enc._graphs()
     enc.double()
     assert enc._graph_cache is None
+
+
+@pytest.mark.parametrize("mask", ["context_valid", "target_valid"])
+def test_v1_refuses_view_masks(mask):
+    """v1 drops no views: the shared forward raises where it is given a
+    view mask, rather than ignoring it."""
+    enc = tiny_encoder("v1")
+    args = views(1)
+    n = args[0 if mask == "context_valid" else 2].shape[1]
+    with pytest.raises(TypeError, match="drops no views"), torch.no_grad():
+        enc(*args, **{mask: torch.ones((n,), dtype=torch.bool)})
 
 
 def test_extra_token_positions_equal_the_host_built_ones():
@@ -304,7 +334,7 @@ def flagship():
 @pytest.fixture(scope="module")
 def vggt():
     """VGGT-1B at full width (bf16 aggregator, float32 heads), seeded."""
-    return on_card(build_vggt_encoder, SPFSplatV2LConfig())
+    return on_card(build_encoder, SPFSplatV2LConfig())
 
 
 @pytest.fixture(params=list(SERVED))

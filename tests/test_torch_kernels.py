@@ -857,10 +857,8 @@ def test_memory_guard_probe_moves_nothing_on_the_card(cuda_device):
     parameter, gradient, moment, count or RNG state."""
     from spfsplatv2_tpu_torch.config import load_config
     from spfsplatv2_tpu_torch.models.croco.backbone import CrocoBackboneConfig
-    from spfsplatv2_tpu_torch.models.encoder import (
-        SPFSplatV2Config,
-        build_encoder,
-    )
+    from spfsplatv2_tpu_torch.models import build_encoder
+    from spfsplatv2_tpu_torch.models.encoder import SPFSplatV2Config
     from spfsplatv2_tpu_torch.training import loop
     from spfsplatv2_tpu_torch.training.optim import Optimizer, OptimizerConfig
     from spfsplatv2_tpu_torch.training.step import LossConfig, init_train_state

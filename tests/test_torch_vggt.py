@@ -399,7 +399,7 @@ def test_seeded_init_is_reproducible_and_follows_flax():
     """`build_encoder` on the CPU: same seed, same weights; the tokens,
     LayerScales and output convs start where the flax initializers put
     them."""
-    from spfsplatv2_tpu_torch.models.encoder_vggt import build_encoder
+    from spfsplatv2_tpu_torch.models import build_encoder
 
     cfg = torch_tiny_vggt_config()
     a = build_encoder(cfg, seed=3, device="cpu")
