@@ -59,7 +59,11 @@ Phases, each printing JSON lines:
      against autograd through the dense form; timed beside the plain
      versions and `torch.nn.functional.scaled_dot_product_attention`
      (the yardstick; the port never calls it), each kernel's TFLOP/s
-     beside its bound;
+     beside its bound; then "view_masked": the view-masked kernel
+     (csrc/flash_view_masked.cu) at the decoders' cross-attention shapes
+     of the flagship and v1 at 1024^2 against its plain version, timed
+     beside its bound, the plain version, the dense path it replaces and
+     SDPA with a boolean mask;
  11. the long-context serving path: 3 requests at 1024^2 (64 x 64
      patches a view, so every self-attention has 4096 or 4098 keys and
      takes K5) through `evaluate_example` with the quantized depth key,
@@ -168,7 +172,9 @@ Phases, each printing JSON lines:
      (2 context views + 1 target at 256^2) through `evaluate_example`,
      launch counts read around exactly those requests, the first
      request's render through K1 and K3 held against their plain versions
-     on the card ("v1_request");
+     on the card ("v1_request"); then one request at 1024^2, whose 72 K5
+     forwards and 48 view-masked launches write no dense logits
+     ("v1_request_1024");
  23. 2 train steps of `make_train_step` at the preset's b = 12 with the
      microbatch `training/loop.py:fit_microbatch` picks, launch counts
      read around exactly those steps, `loss/reproj_c2_only` in each, the
@@ -194,7 +200,7 @@ Phases, each printing JSON lines:
      device events), and `utils/logger.py:LocalLogger` writes a record
      and the drawn cameras' PNG;
  28. "tile_shard_1024": that encoder's pass on a 1024^2 request (48 K5
-     forward launches) gives 2 x 1024^2 Gaussians; their render and its
+     forward and 24 view-masked launches) gives 2 x 1024^2 Gaussians; their render and its
      backward here, then `parallel/raster_shard.py:render_tile_sharded`
      by two gloo ranks sharing the card (torch.multiprocessing.spawn),
      each a 512-row band (K1 and K3 in each, K2 in each backward): the
@@ -300,6 +306,20 @@ K3_PROFILE_CALLS = 50
 # 12 + 12 decoder blocks; the 12th call (encoder block 12) is held
 # against the plain version on its real q, k, v.
 K5_PER_PASS, K5_CHECK_CALL = 48, 11
+# The view-masked kernel (csrc/flash_view_masked.cu, phase "view_masked")
+# at the decoders' cross-attention shapes: (views, num_target, query
+# views [lo, hi), tokens a view), 12 heads.  The flagship at 1024^2 (2 + 1
+# views of 4,098 tokens: view 0, views 1-2) and v1 (4,097: the context
+# pass's view 0; the all-views pass's view 0 and views 1-2).  Launches:
+# 12 + 12 a flagship 1024^2 encoder pass; v1's two passes, 48 a request,
+# beside its 72 K5 forwards.
+VIEW_MASKED_SHAPES = {"v2_view0": (3, 1, (0, 1), 4098),
+                      "v2_views12": (3, 1, (1, 3), 4098),
+                      "v1_context_view0": (2, 0, (0, 1), 4097),
+                      "v1_all_view0": (3, 0, (0, 1), 4097),
+                      "v1_all_views12": (3, 0, (1, 3), 4097)}
+VIEW_MASKED_PER_PASS = 24
+V1_1024_K5, V1_1024_VIEW_MASKED = 72, 48
 # Gaussians of the 1024^2 request whose orthographic render is held
 # against the exact depth order: 18 rank bits + 13 tile bits = 31.
 ORTHO_ORDER_SAMPLE = 1 << 18
@@ -889,6 +909,53 @@ def k5_phase(torch, attention, name: str, shape: tuple, gen, dev,
             "vs_dense_f32_autograd": dense, "kernels": kernels,
             "backward_pair_ms": pair_ms, "sdpa_backward_ms": sdpa_bwd,
             "fwd_bwd_ms": fwd_bwd_ms}
+
+
+def view_masked_phase(torch, attention, spec: tuple, gen, dev) -> dict:
+    """The view-masked kernel at one cross-attention shape with seeded
+    bf16 inputs: O and lse against the plain version (O within 1e-2 of
+    max |O|, lse within 1e-4); its time beside its bound (4 n_q n_k' 64
+    FLOPs over the n_k' keys each row may see, at 989 TFLOP/s), the plain
+    version's, the dense path's it replaces, and SDPA's with a boolean
+    mask (the yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from spfsplatv2_tpu_torch.models.croco.backbone import (
+        build_cross_view_mask,
+    )
+
+    views, num_target, (lo, hi), l = spec
+    mask = build_cross_view_mask(views, num_target, device=dev)[lo:hi]
+    n_q, n_k = (hi - lo) * l, views * l
+    q, k, v = (torch.randn(1, 12, n, 64, generator=gen, device=dev).to(
+        torch.bfloat16) for n in (n_q, n_k, n_k))
+    scale = 64**-0.5
+    o, lse = attention.flash_view_masked_cuda(q, k, v, scale, mask, l)
+    torch.cuda.synchronize()
+    o_p, lse_p = attention.flash_view_masked_plain(q, k, v, scale, mask, l)
+    checks = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p)}
+    del o_p, lse_p
+    for key, tol in (("o", 1e-2), ("lse", 1e-4)):
+        if not checks[key]["max_abs_err"] <= tol * checks[key]["ref_max_abs"]:
+            fail(f"view-masked kernel {spec} {key} vs plain: {checks[key]}")
+    seen = int((mask == 0).sum()) * l * l * 12  # logits a row may see
+    bound = 4 * 64 * seen / 989e12 * 1e3
+    ms = time_ms(torch, lambda: attention.flash_view_masked_cuda(
+        q, k, v, scale, mask, l), 20)
+    with torch.no_grad():
+        dense_ms = time_ms(torch, lambda: attention.sdpa_view_masked(
+            q, k, v, scale, mask, l, chunked_min_kv=1 << 30), 3, 1)
+    plain_ms = time_ms(torch, lambda: attention.flash_view_masked_plain(
+        q, k, v, scale, mask, l), 2, 1)
+    allowed = (mask.repeat_interleave(l, 0).repeat_interleave(l, 1) == 0)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=allowed, scale=scale), 5, 1)
+    return {"shape": [1, 12, n_q, n_k], "tokens_per_view": l,
+            "vs_plain": checks, "ms": ms, "bound_ms": bound,
+            "roofline_pct": 100 * bound / ms,
+            "ex2_bound_ms": seen / H100_EX2_PER_S * 1e3,
+            "plain_ms": plain_ms, "dense_path_ms": dense_ms,
+            "library_ms": library_ms}
 
 
 def split_times(torch, attention, shape: tuple, inputs: tuple) -> dict:
@@ -1915,7 +1982,10 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     )
     from spfsplatv2_tpu_torch.losses.lpips import build_lpips
     from spfsplatv2_tpu_torch.models import get_encoder
-    from spfsplatv2_tpu_torch.models.decoder import decode_splatting
+    from spfsplatv2_tpu_torch.models.decoder import (
+        LONG_CONTEXT_DECODER,
+        decode_splatting,
+    )
     from spfsplatv2_tpu_torch.ops import cuda_lib
     from spfsplatv2_tpu_torch.training import loop
     from spfsplatv2_tpu_torch.training.optim import Optimizer
@@ -1997,6 +2067,35 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
     del out, results
     torch.cuda.empty_cache()
 
+    # ---- v1_request_1024: one request at 1024^2 ------------------------
+    # 4,097 tokens a view: every self-attention takes K5, and each decoder
+    # pass's cross-attention (8,194 and 12,291 keys) the view-masked
+    # kernel, which writes no dense logits.
+    long_size = (HW_LONG, HW_LONG)
+    evaluate_example(encoder, request(-5, HW_LONG), long_size,
+                     LONG_CONTEXT_DECODER, eval_cfg, device=dev)
+    long_results, long_counts = serve_requests(
+        torch, dev, encoder, [request(45, HW_LONG)], long_size,
+        LONG_CONTEXT_DECODER, eval_cfg)
+    long_logits = cuda_lib.launch_counts["masked_attn_logits"]
+    want = {k: 0 for k in long_counts}
+    want.update(flash_forward=V1_1024_K5, flash_view_masked=V1_1024_VIEW_MASKED,
+                composite_forward=1, cumsum_1d=2)
+    res = long_results[0]
+    if long_counts != want or long_logits != 0:
+        fail(f"v1_request_1024 launch counts {long_counts} and masked "
+             f"logits {long_logits}, expected {want} and 0")
+    if not bool(torch.isfinite(res["rendered"]).all()) or not all(
+            math.isfinite(v) for v in [*res["psnr"], *res["pose_rot_err_deg"]]):
+        fail("v1_request_1024: non-finite output")
+    emit({"phase": "v1_request_1024", "launches": long_counts,
+          "masked_logits": long_logits,
+          "encoder_ms": res["times"]["encoder"]["mean_s"] * 1e3,
+          "decoder_ms": res["times"]["decoder"]["mean_s"] * 1e3,
+          "peak_bytes": res["peak_bytes"], "psnr": res["psnr"]})
+    del long_results, res
+    torch.cuda.empty_cache()
+
     # ---- v1_train: make_train_step at b = 12 ---------------------------
     lpips = build_lpips(seed=SEED, device=dev)
     encoder.train()
@@ -2041,7 +2140,8 @@ def v1_phases(torch, repo: Path, dev, request, train_batch) -> dict:
           "teacher_params": sum(p.numel() for p in teacher.parameters()),
           "state_dict": written, "load_and_convert_s": load_s,
           "loss_distillation": losses, "teacher_unchanged": True})
-    return {"serve": serve_counts, "train": run["launches"],
+    return {"serve": serve_counts, "serve_1024": long_counts,
+            "train": run["launches"],
             "distill": drun["launches"], "render_check": render_check,
             "scan_ns": scan_ns, "k2_check": run["k2_vs_plain"],
             "k2_check_distill": drun["k2_vs_plain"]}
@@ -2207,9 +2307,11 @@ def demo_phase(torch, repo: Path, dev) -> dict:
 
     # Two encoder passes of one signature (the demo's, then the video's on
     # the context): the first runs eagerly and is captured, 48 K5 forward
-    # launches each, and the second replays the graph; one K1 and two K3 a
-    # video frame.
-    on_path = {"flash_forward": 2 * K5_PER_PASS, "encoder_graph_eager": 1,
+    # and 24 view-masked launches each, and the second replays the graph;
+    # one K1 and two K3 a video frame.
+    on_path = {"flash_forward": 2 * K5_PER_PASS,
+               "flash_view_masked": 2 * VIEW_MASKED_PER_PASS,
+               "encoder_graph_eager": 1,
                "encoder_graph_replay": 1,
                "composite_forward": DEMO_FRAMES, "cumsum_1d": 2 * DEMO_FRAMES}
     off_path = {k: v for k, v in counts.items() if k not in on_path}
@@ -2924,9 +3026,11 @@ def parallel_phases(torch, repo: Path, dev, drawn) -> dict:
                       t["intrinsics"][None])
     paths["tile_shard_1024_encoder"] = cuda_lib.launches()
     # The encoder's first call at this signature: its eager run and its
-    # capture each count K5's launches.
+    # capture each count K5's and the view-masked kernel's launches.
     want = {k: 0 for k in paths["tile_shard_1024_encoder"]}
-    want.update(flash_forward=2 * K5_PER_PASS, encoder_graph_eager=1)
+    want.update(flash_forward=2 * K5_PER_PASS,
+                flash_view_masked=2 * VIEW_MASKED_PER_PASS,
+                encoder_graph_eager=1)
     if paths["tile_shard_1024_encoder"] != want:
         fail(f"tile_shard_1024 encoder launches "
              f"{paths['tile_shard_1024_encoder']}, expected {want}")
@@ -3796,6 +3900,13 @@ def main() -> int:
         emit({"phase": "K5", "call": name, **k5[name]})
     torch.cuda.empty_cache()
 
+    # ---- 10b. the view-masked kernel at the cross-attention shapes -----
+    view_masked = {}
+    for name, spec in VIEW_MASKED_SHAPES.items():
+        view_masked[name] = view_masked_phase(torch, attention, spec, gen, dev)
+        emit({"phase": "view_masked", "call": name, **view_masked[name]})
+        torch.cuda.empty_cache()
+
     # ---- 11. the long-context serving path (1024^2) -------------------
     long_dec = LONG_CONTEXT_DECODER
     long_size = (HW_LONG, HW_LONG)
@@ -3806,8 +3917,8 @@ def main() -> int:
         torch, dev, encoder, long_requests, long_size, long_dec, eval_cfg)
     n_req = len(long_requests)
     # The warm-up request captured the encoder's graph: each request
-    # replays it, and K5 runs inside the replay, where only the device
-    # trace sees it.
+    # replays it, and K5 and the view-masked kernel run inside the
+    # replay, where only the device trace sees them.
     want = {k: 0 for k in long_counts}
     want.update(encoder_graph_replay=n_req, composite_forward=n_req,
                 cumsum_1d=2 * n_req)
@@ -3815,10 +3926,12 @@ def main() -> int:
         fail(f"1024^2 serving launch counts {long_counts}, expected {want}")
     replayed = replayed_kernels(torch, lambda: evaluate_example(
         encoder, long_requests[0], long_size, long_dec, eval_cfg, device=dev),
-        ("flash_forward_kernel",))
-    if replayed != {"flash_forward_kernel": K5_PER_PASS}:
-        fail(f"1024^2 serving: a replayed request ran {replayed} K5 "
-             f"kernels, not {K5_PER_PASS}")
+        ("flash_forward_kernel", "view_masked_fwd_kernel"))
+    if replayed != {"flash_forward_kernel": K5_PER_PASS,
+                    "view_masked_fwd_kernel": VIEW_MASKED_PER_PASS}:
+        fail(f"1024^2 serving: a replayed request ran {replayed}, not "
+             f"{K5_PER_PASS} K5 and {VIEW_MASKED_PER_PASS} view-masked "
+             f"kernels")
     for i, res in enumerate(long_results):
         if tuple(res["rendered"].shape) != (1, HW_LONG, HW_LONG, 3):
             fail(f"1024^2 request {i}: rendered shape "
@@ -3850,7 +3963,7 @@ def main() -> int:
             "ref_max_abs"]:
         fail(f"K5 on encoder block 12's q, k, v vs plain: {real_check}")
     emit({"phase": "serving_1024", "requests": n_req, "launches": long_counts,
-          "replayed_k5_a_request": replayed,
+          "replayed_kernels_a_request": replayed,
           "encoder_ms": [r["times"]["encoder"]["mean_s"] * 1e3
                          for r in long_results],
           "decoder_ms": [r["times"]["decoder"]["mean_s"] * 1e3
@@ -4106,6 +4219,7 @@ def main() -> int:
              "vggt_serve_3_requests": vggt["serve"],
              "vggt_train_2_steps": vggt["train"], **vggt_cli_counts,
              "v1_serve_3_requests": v1["serve"],
+             "v1_serve_1024_request": v1["serve_1024"],
              "v1_train_2_steps": v1["train"],
              "v1_distill_2_steps": v1["distill"], **v1_cli_counts,
              "vggt_10view_request": v10["serve"],
@@ -4242,6 +4356,14 @@ def main() -> int:
                     long_train_counts),
         *k5_entries(torch.float32, f32["k5"], f32["k5_train"], f32["serve"],
                     f32["train"]),
+        {"name": "flash_view_masked", "route": "cuda",
+         "source": "spfsplatv2_tpu_torch/csrc/flash_view_masked.cu",
+         "replaces": "none: spfsplatv2_tpu/ops/attention.py:sdpa_view_masked "
+                     "is plain jnp",
+         "launches": v1["serve_1024"]["flash_view_masked"],
+         "launches_by_path": by_path("flash_view_masked"),
+         **view_masked["v2_views12"],
+         "at_shapes": view_masked},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -61,8 +61,10 @@ class SPFSplatEncoder(CrocoHeads, Encoder):
 
     Eager in every mode: its serving metric `serve.masked_logits_gib`
     reads a host-side counter (`ops/attention.py:sdpa_view_masked`) that
-    a graph replay would not add to, and at 1024^2 its request keeps the
-    card over 90% busy, which leaves a replay little host time to win."""
+    a graph replay would not add to.  At 1024^2 the decoders'
+    cross-attention takes the view-masked kernel, which moves no such
+    counter, and the card waits on the eager host dispatch for about a
+    third of a request: the time a graph replay would win there."""
 
     def __init__(self, cfg: SPFSplatConfig = SPFSplatConfig()):
         super().__init__()

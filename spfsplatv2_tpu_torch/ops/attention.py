@@ -13,7 +13,10 @@ the inputs' dtype (bf16: `csrc/flash_forward.cu`,
 pre-pass in `csrc/flash_f32_split.cu`); on CPU tensors their plain
 version, the dense form.  The view-masked attention stays dense below
 `chunked_min_kv` keys and is computed in query chunks above it, as in
-JAX (no kernel there).
+JAX; at that many keys its bf16 inference forward on CUDA tensors takes
+a hand-written kernel instead, `csrc/flash_view_masked.cu`: K5's forward
+over only the key views that the mask allows.  JAX's `sdpa_view_masked`
+is plain jnp, so that kernel replaces no TPU kernel.
 """
 
 from __future__ import annotations
@@ -423,15 +426,103 @@ def sdpa(q, k, v, scale, *, flash_min_kv: int | None = None):
     return _dense(q, k, v, scale)
 
 
+def flash_view_masked_plain(q, k, v, scale, view_mask,
+                            tokens_per_view: int):
+    """The plain version of the view-masked kernel, in its arithmetic:
+    float32 logits plus the additive (vq, vk) view mask, the softmax
+    numerator in float32 and rounded to v's dtype for the PV product, the
+    sum taken in float32.  Returns O in v's dtype and the rows' log-sum-
+    exp, (b, h, n_q) float32.  A row that sees no key gives O = NaN (0 /
+    0, as the dense form's softmax over -inf) and lse = -inf."""
+    l = tokens_per_view
+    mask = view_mask.float().repeat_interleave(l, 0).repeat_interleave(l, 1)
+    logits = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+              + mask)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - torch.where(m == -torch.inf, 0.0, m))
+    total = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                     v.float()) / total
+    return o.to(v.dtype), (m + torch.log(total))[..., 0]
+
+
+# The view-masked kernel keeps the allowed key views in one 64-bit word.
+VIEW_MASKED_MAX_VIEWS = 64
+
+
+def flash_view_masked_cuda(q, k, v, scale, view_mask, tokens_per_view: int):
+    """Launch the view-masked kernel on contiguous (b, h, n, 64) bf16 CUDA
+    tensors and a contiguous (vq, vk) float32 view mask on their device
+    (0 or -inf per query view and key view; n_q = vq l, n_k = vk l,
+    vk <= 64); returns O (b, h, n_q, 64) bf16 and lse (b, h, n_q)
+    float32.  The mask stays on the device: nothing is synchronised."""
+    n_q, n_k = q.shape[2], k.shape[2]
+    tensors = {"q": q, "k": k, "v": v}
+    _require_cuda(tensors)
+    bh = _check_flash_inputs(tensors, n_q, n_k)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the view-masked kernel takes bfloat16, got "
+                         f"{q.dtype}")
+    l = int(tokens_per_view)
+    vq, vk = view_mask.shape if view_mask.ndim == 2 else (-1, -1)
+    if l <= 0 or vq * l != n_q or vk * l != n_k:
+        raise ValueError(f"view mask {tuple(view_mask.shape)} with "
+                         f"{l} tokens a view does not cover n_q = {n_q}, "
+                         f"n_k = {n_k}")
+    if vk > VIEW_MASKED_MAX_VIEWS:
+        raise ValueError(f"the view-masked kernel takes at most "
+                         f"{VIEW_MASKED_MAX_VIEWS} key views, got {vk}")
+    # Read an entry at a time: 4-byte alignment is enough (a row slice of
+    # a mask is taken as it lies).
+    cuda_lib.require(view_mask, "view_mask", torch.float32, 2, q.device)
+    scale = float(scale)
+    if scale < 0:
+        q, scale = -q, -scale
+    elif scale == 0:
+        q, scale = torch.zeros_like(q), 1.0
+    name = "flash_view_masked"
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = cuda_lib.library(name).spf_flash_view_masked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), view_mask.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, n_q, n_k, vq, vk, l, scale,
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.check(err, name)
+    return o, lse
+
+
+def _takes_view_masked_kernel(q, k, v, view_mask, chunked_min_kv) -> bool:
+    """Whether `sdpa_view_masked` launches its kernel: bf16 CUDA inputs of
+    head dim 64, `chunked_min_kv` keys or more, at most 64 key views, and
+    no gradient being recorded (the kernel has no backward)."""
+    return (q.is_cuda and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] == HEAD_DIM and k.shape[2] >= chunked_min_kv
+            and view_mask.shape[-1] <= VIEW_MASKED_MAX_VIEWS
+            and not (torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad)))
+
+
 def sdpa_view_masked(q, k, v, scale, view_mask, tokens_per_view: int,
                      *, chunk_q: int = 512,
-                     chunked_min_kv: int = FLASH_MIN_KV):
+                     chunked_min_kv: int | None = None):
     """View-block-masked attention; view_mask (vq, vk) is additive (0/-inf)
     and token r belongs to view r // tokens_per_view.  At `chunked_min_kv`
-    keys or more, when chunk_q divides n_q, queries go in chunks of
-    `chunk_q` (logits O(chunk_q * n_k) at a time; exact, since softmax rows
-    are independent).  Either way the b h n_q n_k float32 logits it writes
-    are added to `cuda_lib.launch_counts["masked_attn_logits"]`."""
+    keys or more (None: the module's `FLASH_MIN_KV`, read at call time as
+    `sdpa` reads it), the bf16 inference forward of 64-wide heads on CUDA
+    tensors launches the view-masked kernel (`flash_view_masked_cuda`),
+    which writes no logits; anything else, when chunk_q divides n_q, goes
+    in query chunks of `chunk_q` (logits O(chunk_q * n_k) at a time;
+    exact, since softmax rows are independent), and otherwise stays dense.
+    The b h n_q n_k float32 logits that those two branches write are added
+    to `cuda_lib.launch_counts["masked_attn_logits"]`."""
+    if chunked_min_kv is None:
+        chunked_min_kv = FLASH_MIN_KV
+    if _takes_view_masked_kernel(q, k, v, view_mask, chunked_min_kv):
+        o, _ = flash_view_masked_cuda(
+            *map(_aligned, (q, k, v)), scale, view_mask.contiguous(),
+            tokens_per_view)
+        return o
     n_q, n_k = q.shape[2], k.shape[2]
     l = tokens_per_view
     cuda_lib.launch_counts["masked_attn_logits"] += (

@@ -16,8 +16,9 @@ inference forwards that took its CUDA graphs (`utils/cuda_graph.py`):
 `encoder_graph_replay`, the replays, and `encoder_graph_eager`, the
 first call of each input signature, run eagerly before its capture.
 One more counts no launch: `masked_attn_logits`, the float32 logits that
-`ops/attention.py:sdpa_view_masked` writes densely (b h n_q n_k a call,
-on every device), which the benchmark reads as bytes a request.
+`ops/attention.py:sdpa_view_masked` writes densely (b h n_q n_k a call of
+its dense or query-chunked branch, on every device; its kernel's branch
+writes none), which the benchmark reads as bytes a request.
 """
 
 from __future__ import annotations
@@ -77,6 +78,9 @@ SIGNATURES = {
     "flash_f32_backward_dq": {
         "spf_flash_f32_backward_dq": [_P] * 8 + [_I, _I, _I, _F, _P],
     },
+    "flash_view_masked": {
+        "spf_flash_view_masked": [_P] * 6 + [_I] * 6 + [_F, _P],
+    },
     # Not a path kernel: each kind of wgmma product of K5's backward
     # alone, for the tests (no launch count).
     "wgmma_check": {
@@ -95,8 +99,8 @@ launch_counts: dict[str, int] = {
     "flash_backward_dq": 0, "flash_f32_forward": 0,
     "flash_f32_split_forward": 0, "flash_f32_split": 0,
     "flash_f32_backward_dkv": 0, "flash_f32_backward_dq": 0,
-    "encoder_graph_replay": 0, "encoder_graph_eager": 0,
-    "masked_attn_logits": 0,
+    "flash_view_masked": 0, "encoder_graph_replay": 0,
+    "encoder_graph_eager": 0, "masked_attn_logits": 0,
 }
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -5,7 +5,8 @@ The port's v1 encoder against the plain reference
 weight plan; the new serving cells run whole through the harness; the
 `masked_attn_logits` counter of `ops/attention.py:sdpa_view_masked`; the
 K5 shapes that `portbench/roofline_v1.py` counts against the attention
-calls of a v1 forward; and the reference's imports.
+calls of a v1 forward; the reference's imports; and the readers of the
+view-masked kernel's share in both 1024^2 serving cells.
 """
 
 from __future__ import annotations
@@ -238,3 +239,47 @@ def test_v1_reference_imports_no_port_or_jax():
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[] []"
+
+
+def _trace(launches: int, items: int = 2):
+    """A traced segment whose device trace holds `launches` of the
+    view-masked kernel beside a K5 forward."""
+    from portbench import trace as trace_mod
+
+    device = [(0, 10, "view_masked_fwd_kernel")] * launches
+    return trace_mod.Trace(window_s=1.0, items=items,
+                           device=device + [(0, 5, "flash_forward_kernel")])
+
+
+@pytest.mark.parametrize("workload,name,calls", [
+    ("v2-serve-1024", "serve.masked_flash_share", 24),
+    ("v1-serve-1024", "serve.masked_flash_share.v1", 48),
+])
+@pytest.mark.parametrize("case", ["all", "half", "none", "untraced",
+                                  "256px", "float32"])
+def test_masked_flash_share_readers(workload, name, calls, case):
+    """The readers of the view-masked kernel's share: its launches in the
+    device trace a traced request over the decoders' cross-attention calls
+    with FLASH_MIN_KV keys or more (the flagship's 2 x 12 over 3 x 4,098
+    keys; v1's 4 x 12 over 2 x and 3 x 4,097), in %; nothing without a
+    trace, without a launch of the kernel (a program without it), or
+    where no call reaches the threshold (256^2: 774 and 771 keys) or the
+    decoders are not bf16."""
+    from portbench import view_masked
+
+    cell = harness.load_cell(workload)
+    config, traffic = cell.config, cell.traffic
+    counter = (view_masked.flagship_calls if name.endswith("share")
+               else view_masked.v1_calls)
+    assert counter(config, traffic) == calls
+    if case == "256px":
+        traffic = {**traffic, "image_size": 256}
+    if case == "float32":
+        config = merge(config, {"encoder": {"backbone": {
+            "compute_dtype": "float32"}}})
+    launches = {"all": calls, "half": calls // 2, "none": 0}.get(case, calls)
+    r = harness.Readings("serve", config, traffic, 0.0, 1.0, 2, 2, [], {},
+                         None, None, {},
+                         None if case == "untraced" else _trace(2 * launches))
+    want = {"all": 100.0, "half": 50.0}.get(case)
+    assert harness.load_metric(name)(r) == want

@@ -9,8 +9,10 @@ against JAX's `flash_attention.mha_reference` on the inputs padded to
 JAX's 512-row blocks with the segment ids JAX's `sdpa` builds, which
 checks the padding contract: real queries see only the real keys.  Also
 K5's plain versions (the references of its kernels on the card), the
-query-chunked branch of `sdpa_view_masked`, and the tiny encoder through
-`evaluate_example` with every self-attention on the flash branch.
+query-chunked branch of `sdpa_view_masked`, the plain version of its
+view-masked kernel and the gate that picks that kernel, and the tiny
+encoder through `evaluate_example` with every self-attention on the flash
+branch.
 
 Tolerances, as fractions of the reference's max |value|: float32 1e-5
 (both sides compute in float32, in another order); bfloat16 8e-3 against
@@ -22,6 +24,7 @@ which also keeps the softmax numerator in bfloat16.
 import dataclasses
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -257,3 +260,146 @@ def test_evaluate_example_flash_branch_matches_jax(flash_calls, monkeypatch,
     for key in ("pose_rot_err_deg", "pose_transl_err_deg"):
         np.testing.assert_allclose(tres[key], jres[key], atol=1e-3, err_msg=key)
     assert float(np.mean(rendered)) > 0.0
+
+
+# The view-masked kernel's cases, shared with its card tests in spirit:
+# (views, num_target, view_valid, query views [lo, hi), tokens a view).
+# The flagship's decoders (2 + 1 views: view 0, views 1-2), v1's
+# all-to-all masks (view 1 of three sees the non-contiguous views 0 and
+# 2), a view shorter than the kernel's 192 query rows a block and views
+# that are no multiple of 64 or 128, `view_valid` blocking view 1 (view 0
+# of the flagship's context then sees nothing: NaN, as in JAX).
+VIEW_MASKED_CASES = {
+    "flagship_view0": (3, 1, None, (0, 1), 70),
+    "flagship_views12": (3, 1, None, (1, 3), 70),
+    "v1_context": (2, 0, None, (0, 2), 65),
+    "v1_all_views12": (3, 0, None, (1, 3), 65),
+    "view_under_cta_rows": (4, 1, None, (0, 4), 37),
+    "view_valid_blocks_view1": (3, 1, (True, False, True), (0, 3), 48),
+}
+
+
+def _view_masked_inputs(case, dtype=np.float32, heads=2, seed=5):
+    views, num_target, valid, (lo, hi), l = VIEW_MASKED_CASES[case]
+    jvalid = None if valid is None else jnp.asarray(valid)
+    jmask = jbuild_mask(views, num_target, jvalid)[lo:hi]
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((1, heads, (hi - lo) * l, 64)).astype(dtype)
+    k, v = (rng.standard_normal((1, heads, views * l, 64)).astype(dtype)
+            for _ in range(2))
+    return q, k, v, jmask, l
+
+
+@pytest.mark.parametrize("case", list(VIEW_MASKED_CASES))
+def test_view_masked_plain_matches_jax_and_dense(case):
+    """`flash_view_masked_plain` (the view-masked kernel's arithmetic)
+    against JAX's `sdpa_view_masked` and the port's dense form on float32
+    inputs, where no side rounds: within 1e-5 of max |O|, and NaN on the
+    same rows (a query view that sees no key view).  Its lse is the
+    log-sum-exp of the masked logits, -inf on those rows."""
+    q, k, v, jmask, l = _view_masked_inputs(case)
+    mask = torch.from_numpy(np.array(jmask))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = attention.flash_view_masked_plain(tq, tk, tv, SCALE, mask, l)
+    jout = np.asarray(jattn.sdpa_view_masked(*map(jnp.asarray, (q, k, v)),
+                                             SCALE, jmask, l))
+    dense = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l).numpy()
+    dead = np.isnan(jout)
+    assert np.array_equal(np.isnan(o.numpy()), dead)
+    assert np.array_equal(np.isnan(dense), dead)
+    assert dead.any() == (case == "view_valid_blocks_view1")
+    live = ~dead
+    assert _rel_err(o.numpy()[live], jout[live]) <= 1e-5
+    assert _rel_err(dense[live], jout[live]) <= 1e-5
+    logits = (np.einsum("bhqd,bhkd->bhqk", q, k).astype(np.float64) * SCALE
+              + np.repeat(np.repeat(np.array(jmask), l, 0), l, 1))
+    with np.errstate(divide="ignore"):
+        want = np.log(np.exp(logits).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_view_masked_plain_rounds_p_as_the_kernel():
+    """In bf16 the plain version rounds only P (to bf16, for the PV
+    product) and keeps the logits in float32, so it is closer than the
+    port's dense form (logits rounded to bf16 too) to the float32 result
+    on the same bf16 inputs: within 1e-2 of max |O|."""
+    q, k, v, jmask, l = _view_masked_inputs("v1_all_views12")
+    mask = torch.from_numpy(np.array(jmask))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    exact = attention.flash_view_masked_plain(
+        tq.float(), tk.float(), tv.float(), SCALE, mask, l)[0].numpy()
+    plain = attention.flash_view_masked_plain(tq, tk, tv, SCALE, mask, l)[0]
+    dense = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l)
+    assert plain.dtype == torch.bfloat16
+    plain_err = _rel_err(plain.float().numpy(), exact)
+    assert plain_err <= 1e-2
+    assert plain_err <= _rel_err(dense.float().numpy(), exact)
+
+
+def _fake(shape, dtype=torch.bfloat16, cuda=True, grad=False):
+    """What the view-masked gate reads of a tensor, without a card."""
+    return SimpleNamespace(is_cuda=cuda, dtype=dtype, shape=shape,
+                           requires_grad=grad)
+
+
+GATE_CASES = {
+    "bf16_inference": ({}, True),
+    "cpu": ({"cuda": False}, False),
+    "float32": ({"dtype": torch.float32}, False),
+    "head_dim_32": ({"d": 32}, False),
+    "under_min_kv": ({"n_k": 4095}, False),
+    "65_key_views": ({"views": 65}, False),
+    "grad_recorded": ({"grad": True}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_view_masked_kernel_gate(case):
+    """`sdpa_view_masked` takes the view-masked kernel only for bf16 CUDA
+    inputs of head dim 64 with `chunked_min_kv` keys or more, at most 64
+    key views, and no gradient recorded; a tensor that needs a gradient
+    outside `torch.no_grad` keeps the dense branches (the kernel has no
+    backward), and inside it takes the kernel."""
+    kw, want = GATE_CASES[case]
+    d, n_k = kw.get("d", 64), kw.get("n_k", 12294)
+    dtype, cuda = kw.get("dtype", torch.bfloat16), kw.get("cuda", True)
+    q = _fake((1, 12, 8196, d), dtype, cuda, kw.get("grad", False))
+    k, v = (_fake((1, 12, n_k, d), dtype, cuda) for _ in range(2))
+    mask = _fake((2, kw.get("views", 3)), torch.float32, cuda)
+    gate = attention._takes_view_masked_kernel
+    assert gate(q, k, v, mask, 4096) is want
+    if case == "grad_recorded":
+        with torch.no_grad():
+            assert gate(q, k, v, mask, 4096) is True
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+def test_view_masked_on_cpu_keeps_its_branches_and_count(grad):
+    """On CPU tensors at `chunked_min_kv` keys or more `sdpa_view_masked`
+    launches nothing and runs the query-chunked branch (chunk_q divides
+    n_q) or the dense one, each counting its b h n_q n_k logits, with or
+    without a gradient recorded; the gradient flows."""
+    q, k, v, jmask, l = _view_masked_inputs("flagship_views12")
+    mask = torch.from_numpy(np.array(jmask))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(grad) for x in (q, k, v))
+    cuda_lib.reset_launch_counts()
+    chunked = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l,
+                                         chunk_q=35, chunked_min_kv=64)
+    dense = attention.sdpa_view_masked(tq, tk, tv, SCALE, mask, l,
+                                       chunk_q=36, chunked_min_kv=64)
+    logits = 2 * 2 * q.shape[2] * k.shape[2]
+    assert cuda_lib.launch_counts["masked_attn_logits"] == logits
+    assert not any(cuda_lib.launches().values())
+    torch.testing.assert_close(chunked, dense, rtol=1e-5, atol=1e-6)
+    if grad:
+        (g,) = torch.autograd.grad(chunked.sum(), tq)
+        assert bool(torch.isfinite(g).all())
+
+
+def test_view_masked_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper launches or raises: CPU tensors raise."""
+    q, k, v, jmask, l = _view_masked_inputs("flagship_view0")
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention.flash_view_masked_cuda(
+            *args, SCALE, torch.from_numpy(np.array(jmask)), l)

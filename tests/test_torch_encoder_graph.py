@@ -11,8 +11,9 @@ value and dtype; the benchmark's readers of the replayed share.
 On the card (`cuda`), the flagship at 256^2 and VGGT-1B at 224^2, with
 2 + 1 views: a replay equals the eager forward bitwise; each signature
 captures its own graph; outputs survive later calls; the counters; a
-flagship replay's device trace holds as many K5 launches as the eager
-forward's wrappers count.  This file imports torch and the port only
+flagship replay's device trace holds as many K5 launches, and as many
+launches of the view-masked kernel (the decoders' cross-attention), as
+the eager forward's wrappers count.  This file imports torch and the port only
 (no JAX):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_encoder_graph.py
@@ -487,5 +488,51 @@ def test_k5_launches_count_the_same_replayed(cuda_device, flagship,
     assert per_call == [48, 96, 0, 0]
     assert traced == 48
     assert counters() == {"encoder_graph_replay": 2, "encoder_graph_eager": 1}
+    for got in outs:
+        assert_bitwise(got, want)
+
+
+@pytest.mark.cuda
+def test_view_masked_launches_count_the_same_replayed(cuda_device, flagship,
+                                                      monkeypatch):
+    """With FLASH_MIN_KV lowered to 512, the decoders' cross-attention
+    (774 keys at 256^2, 2 + 1 views) takes the view-masked kernel while
+    the self-attentions (256 and 258 keys) stay dense: the eager forward's
+    wrappers count 24 launches (12 layers x 2 decoders) and no dense
+    logits, the first graph-path call 48 (its eager run and its capture),
+    a replay none, while its device trace holds 24 of the kernel.  The
+    replays equal the eager forward bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(attention, "FLASH_MIN_KV", 512)
+    enc = fresh(flagship)
+    args = views(12, HW, device=cuda_device)
+    per_call, outs = [], []
+
+    def launched():
+        return cuda_lib.launch_counts["flash_view_masked"]
+
+    with torch.no_grad():
+        enc.train()
+        want = enc(*args)
+        per_call.append(launched())
+        enc.eval()
+        for _ in range(2):
+            before = launched()
+            outs.append(enc(*args))
+            per_call.append(launched() - before)
+        torch.cuda.synchronize()
+        before = launched()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs.append(enc(*args))
+            torch.cuda.synchronize()
+        per_call.append(launched() - before)
+    traced = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                 and "view_masked_fwd_kernel" in e.name for e in prof.events())
+    assert per_call == [24, 48, 0, 0]
+    assert traced == 24
+    assert cuda_lib.launch_counts["masked_attn_logits"] == 0
+    assert cuda_lib.launch_counts["flash_forward"] == 0
     for got in outs:
         assert_bitwise(got, want)

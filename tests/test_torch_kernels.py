@@ -26,8 +26,12 @@ from spfsplatv2_tpu_torch.ops.attention import (
     flash_f32_split_plain,
     flash_forward_cuda,
     flash_forward_plain,
+    flash_view_masked_cuda,
+    flash_view_masked_plain,
+    sdpa_view_masked,
     _dense,
 )
+from spfsplatv2_tpu_torch.models.croco.backbone import build_cross_view_mask
 from spfsplatv2_tpu_torch.ops import cuda_lib
 from spfsplatv2_tpu_torch.ops.covariance import build_covariance
 from spfsplatv2_tpu_torch.ops.raster_common import project_gaussians
@@ -826,7 +830,7 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
 def test_flash_f32_autograd_matches_dense(cuda_device):
     """The autograd function on float32 inputs launches the three float32
     kernels and the forward's and the backward's split pre-passes once
-    each (and no bf16 one) and matches autograd through the
+    each (and no bf16 one, nor the view-masked kernel) and matches autograd through the
     dense form in float32 within 1e-4 of each max; mixed dtypes raise."""
     q, k, v, do = _flash_inputs(cuda_device, 2, 2, 4098, 4098, seed=1,
                                 dtype=torch.float32)
@@ -840,7 +844,7 @@ def test_flash_f32_autograd_matches_dense(cuda_device):
                       "flash_backward_dq": 0, "flash_f32_forward": 1,
                       "flash_f32_split_forward": 1,
                       "flash_f32_split": 1, "flash_f32_backward_dkv": 1,
-                      "flash_f32_backward_dq": 1}
+                      "flash_f32_backward_dq": 1, "flash_view_masked": 0}
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = _dense(*ref_leaves, 0.125)
     ref_grads = torch.autograd.grad(ref, ref_leaves, do)
@@ -900,6 +904,119 @@ def test_memory_guard_probe_moves_nothing_on_the_card(cuda_device):
     assert all(torch.equal(a, b) for a, b in zip(
         moments, loop.checkpoint_dict(state)["mu"].values()))
     assert torch.equal(rng_state, torch.cuda.get_rng_state(cuda_device))
+
+
+# The view-masked kernel's cases: (views, num_target, view_valid, query
+# views [lo, hi), tokens a view l, heads).  The served shapes: the
+# flagship's decoders at 1024^2 (l = 4,098: view 0, (1, 12, 4098, 12294);
+# views 1-2, (1, 12, 8196, 12294)) and v1's (l = 4,097: the context
+# pass's view 0, (1, 12, 4097, 8194); the all-views pass's view 0,
+# (1, 12, 4097, 12291), and views 1-2, (1, 12, 8194, 12291), whose view 1
+# sees the non-contiguous views 0 and 2).  Then a view under a block's 192
+# query rows and no multiple of 64 or 128, VGGT-1B's 262-token views at 16
+# views, `view_valid` blocking view 1 (view 0 sees nothing: NaN), and
+# 200-token views whose blocks cross query views with other allowed sets.
+VIEW_MASKED_SHAPES = {
+    "v2_view0": (3, 1, None, (0, 1), 4098, 12),
+    "v2_views12": (3, 1, None, (1, 3), 4098, 12),
+    "v1_context_view0": (2, 0, None, (0, 1), 4097, 12),
+    "v1_all_view0": (3, 0, None, (0, 1), 4097, 12),
+    "v1_all_views12": (3, 0, None, (1, 3), 4097, 12),
+    "view_of_37": (4, 1, None, (0, 4), 37, 3),
+    "16_views_of_262": (16, 1, None, (0, 16), 262, 2),
+    "view_valid_blocks_view1": (3, 1, (True, False, True), (0, 3), 300, 3),
+    "blocks_cross_query_views": (3, 0, None, (0, 3), 200, 3),
+}
+
+
+def _view_masked_inputs(device, views, num_target, valid, rows, l, heads,
+                        seed=6):
+    valid = None if valid is None else torch.tensor(valid, device=device)
+    mask = build_cross_view_mask(views, num_target, valid, device=device)
+    mask = mask[rows[0]:rows[1]]
+    q, k, v, _ = _flash_inputs(device, 1, heads, mask.shape[0] * l,
+                               views * l, seed=seed)
+    return q, k, v, mask
+
+
+def _check_view_masked(o, lse, o_p, lse_p):
+    """O within 1e-2 of max |O| (bf16 output, P rounded to bf16 in both),
+    lse within 1e-4 of max |lse|, NaN O and -inf lse on the same rows."""
+    dead = torch.isnan(o_p)
+    assert torch.equal(torch.isnan(o), dead)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(lse_p))
+    live, finite = ~dead, torch.isfinite(lse_p)
+    if live.any():
+        assert _within(o[live], o_p[live], 1e-2)
+        assert float((lse[finite] - lse_p[finite]).abs().max()) <= 1e-4 * \
+            float(lse_p[finite].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VIEW_MASKED_SHAPES))
+def test_view_masked_kernel_matches_plain(cuda_device, case):
+    """The view-masked kernel against its plain version at the served
+    shapes and the edge cases above."""
+    views, nt, valid, rows, l, heads = VIEW_MASKED_SHAPES[case]
+    q, k, v, mask = _view_masked_inputs(cuda_device, views, nt, valid, rows,
+                                        l, heads)
+    o, lse = flash_view_masked_cuda(q, k, v, 0.125, mask, l)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_view_masked_plain(q, k, v, 0.125, mask, l)
+    assert o.dtype == torch.bfloat16
+    _check_view_masked(o, lse, o_p, lse_p)
+    assert torch.isnan(o_p).any() == (case == "view_valid_blocks_view1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["finite_entries", "all_blocked",
+                                  "negative_scale"])
+def test_view_masked_kernel_mask_values(cuda_device, case):
+    """A mask of finite entries other than 0 (added to the logits, tile by
+    tile where one view's entry holds, logit by logit across a view
+    boundary), a mask that blocks everything (no key tile at all: every
+    row NaN), and a negative scale (folded into q)."""
+    neg = float("-inf")
+    entries = {"finite_entries": [[0.5, neg, -1.0], [neg, 0.0, 2.0],
+                                  [1.0, 1.0, neg]],
+               "all_blocked": [[neg] * 3] * 3,
+               "negative_scale": [[neg, 0.0, 0.0], [0.0, neg, 0.0],
+                                  [0.0, 0.0, neg]]}[case]
+    mask = torch.tensor(entries, device=cuda_device)
+    l, scale = 150, -0.125 if case == "negative_scale" else 0.125
+    q, k, v, _ = _flash_inputs(cuda_device, 1, 3, 3 * l, 3 * l, seed=7)
+    o, lse = flash_view_masked_cuda(q, k, v, scale, mask, l)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_view_masked_plain(q, k, v, scale, mask, l)
+    _check_view_masked(o, lse, o_p, lse_p)
+    assert bool(torch.isnan(o).all()) == (case == "all_blocked")
+
+
+@pytest.mark.cuda
+def test_view_masked_gate_and_launch_count(cuda_device):
+    """`sdpa_view_masked` at 12,294 keys: the bf16 inference forward
+    launches the kernel once and counts no dense logits, the same bits as
+    the wrapper; with a gradient recorded, and in float32, it keeps the
+    dense branch (4098 % 512 != 0), counts its logits and launches
+    nothing; the dense bf16 form agrees with the kernel within 2e-2 of
+    max |O| (it rounds the logits to bf16 too)."""
+    q, k, v, mask = _view_masked_inputs(cuda_device, 3, 1, None, (1, 3),
+                                        4098, 2)
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        got = sdpa_view_masked(q, k, v, 0.125, mask, 4098)
+    assert cuda_lib.launch_counts["flash_view_masked"] == 1
+    assert cuda_lib.launch_counts["masked_attn_logits"] == 0
+    assert torch.equal(got, flash_view_masked_cuda(q, k, v, 0.125, mask,
+                                                   4098)[0])
+    logits = 2 * q.shape[2] * k.shape[2]
+    cuda_lib.reset_launch_counts()
+    leaf = q.clone().requires_grad_()
+    dense = sdpa_view_masked(leaf, k, v, 0.125, mask, 4098)
+    sdpa_view_masked(q.float(), k.float(), v.float(), 0.125, mask, 4098)
+    assert cuda_lib.launch_counts["masked_attn_logits"] == 2 * logits
+    assert not any(cuda_lib.launches().values())
+    assert _within(got, dense, 2e-2)
 
 
 def test_port_imports_without_jax():
