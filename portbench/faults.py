@@ -6,6 +6,9 @@ check has to catch (`tests/test_portbench_check.py`, `calibrate.py`):
   * `unchanged_state`: the optimizer's update does nothing;
   * `altered_render` (serving): the render comes back upside down where
     `decode_splatting` produces it;
+  * `altered_opacities` (serving): the Gaussians' opacities come back 5%
+    low where the encoder's opacity mapping (`map_pdf_to_opacity`, as
+    `models/encoder_base.py` calls it) produces them;
   * `altered_loss` (training): the MSE term comes back 5% high where
     `compute_losses` takes it.  (A render altered inside a training step
     is not caught: against seeded pixels, an unrelated render's loss does
@@ -60,6 +63,12 @@ def altered_render():
     return patched("models.decoder", "decode_splatting", make)
 
 
+def altered_opacities():
+    def make(orig):
+        return lambda *a, **k: 0.95 * orig(*a, **k)
+    return patched("models.encoder_base", "map_pdf_to_opacity", make)
+
+
 def altered_loss():
     def make(orig):
         return lambda *a, **k: 1.05 * orig(*a, **k)
@@ -67,4 +76,5 @@ def altered_loss():
 
 
 FAULTS = {"half_batch": half_batch, "unchanged_state": unchanged_state,
-          "altered_render": altered_render, "altered_loss": altered_loss}
+          "altered_render": altered_render,
+          "altered_opacities": altered_opacities, "altered_loss": altered_loss}

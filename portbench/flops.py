@@ -4,7 +4,10 @@ meta tensors: the published model's work as the reference does it, not
 what the program launches, so a change that removes or recomputes work
 does not move it.
 
-  * serving: the encoder's forward on one request;
+  * serving: the encoder's forward on one request, counted with autograd
+    recording as in training (the same operations: FlopCounterMode's
+    module tracker cannot hook a view of a parameter made without it,
+    as VGGT-1B's camera head takes its empty pose tokens);
   * training: the encoder's forward and backward on one batch with no
     recompute (remat off), plus LPIPS's forward and its input gradient on
     the rendered targets.  The rasterizer is not counted.
@@ -56,7 +59,7 @@ def count(config: dict, traffic: dict) -> int:
     imgs = lambda v: torch.empty(b, v, hw, hw, 3, device=meta)
     intr = lambda v: k.expand(b, v, 3, 3)
     with FlopCounterMode(display=False) as counter:
-        with torch.set_grad_enabled(train):
+        with torch.set_grad_enabled(True):
             out = enc(imgs(v_c), intr(v_c), imgs(v_t), intr(v_t))
         if train:
             g = out["gaussians"]

@@ -50,6 +50,7 @@ MOVING_LEAF = 1e-3
 # The pose telemetry a training step returns (the predicted pose of the
 # last context view against its ground truth).
 POSE_METRICS = ("pose/context_rot_deg", "pose/context_transl_deg")
+GAUSSIAN_FIELDS = ("means", "covariances", "harmonics", "opacities")
 
 
 @dataclass
@@ -81,6 +82,9 @@ class Readings:
     peak_window_bytes: int | None
     launches: dict             # kernel -> launches per item
     trace: object = None       # trace.Trace of the traced segment
+    # (rows reached, entries walked, pairs blended) of each K1 launch of
+    # the traced segment (`raster_work.py`), counted after the segment
+    raster: list | None = None
 
 
 @dataclass
@@ -259,6 +263,65 @@ class FirstForward:
             self.handle.remove()
 
 
+class Capture:
+    """One traced item's encoder forwards while this is registered: their
+    Gaussians and the poses of the views from `v_cxt` on (the targets the
+    item renders), detached, with the item's `target` views (batched)."""
+
+    def __init__(self, encoder, v_cxt: int, target: dict):
+        self.v_cxt, self.target, self.outs = v_cxt, target, []
+        self.handle = encoder.register_forward_hook(self)
+
+    def __call__(self, module, args, output):
+        g = output["gaussians"]
+        self.outs.append(({k: getattr(g, k).detach()
+                           for k in GAUSSIAN_FIELDS},
+                          output["extrinsics_cwt"][:, self.v_cxt:].detach()))
+
+
+def capturing(encoder, v_cxt: int, run_item, target_of):
+    """`run_item` with each item's encoder forwards captured (`Capture`,
+    the item's targets from `target_of(k)`); -> (the wrapped item, the
+    list its captures go to, in order)."""
+    captures = []
+
+    def item(k):
+        captures.append(Capture(encoder, v_cxt, target_of(k)))
+        try:
+            return run_item(k)
+        finally:
+            captures[-1].handle.remove()
+
+    return item, captures
+
+
+def count_raster(cell: Cell, captures: list, log) -> list:
+    """The walk of each K1 launch that rendered the captured items, item
+    by item (a step's microbatches together, at its targets' intrinsics
+    and near planes), by the reference's binning and walk: (rows,
+    entries, pairs) a launch."""
+    from portbench import raster_work
+
+    tr = cell.traffic
+    dec_cfg = build(side(REFERENCE, "models.decoder").DecoderConfig,
+                    tr["decoder"])
+    hw = tr["image_size"]
+    work = []
+    for cap in captures:
+        gaussians = {k: torch.cat([o[0][k] for o in cap.outs])
+                     for k in GAUSSIAN_FIELDS}
+        extrinsics = torch.cat([o[1] for o in cap.outs])
+        intrinsics, near = (cap.target[k].to(extrinsics.device)
+                            for k in ("intrinsics", "near"))
+        work += raster_work.render_work(gaussians, extrinsics, intrinsics,
+                                        near, (hw, hw), dec_cfg)
+    log(f"raster walk of the traced items: "
+        f"{captures[0].outs[0][0]['means'].shape[1]} Gaussians a scene; "
+        f"(rows reached, entries walked, pairs blended) a launch: "
+        f"{json.dumps(work)}")
+    return work
+
+
 def rel(a: torch.Tensor, b: torch.Tensor) -> float:
     """Relative L2 gap of `a` to `b`; infinite where the shapes differ."""
     if a.shape != b.shape:
@@ -322,19 +385,50 @@ def forward_numbers(p: dict, r: dict) -> dict:
             "pose_gap": rel(p["poses"], r["poses"])}
 
 
+def pose_angles(p: torch.Tensor, r: torch.Tensor) -> dict:
+    """The worst view's rotation gap (`pose_rot_gap`) and gap of
+    translation direction (`pose_dir_gap`), in degrees, between two sets
+    of poses less the identity (`kept_batch`): neither scales with the
+    unit baseline.  Directions only of views whose reference translation
+    is over 1e-3 of the longest (view 0 is the origin)."""
+    eye = torch.eye(4, dtype=torch.float64)
+    p, r = p.double() + eye, r.double() + eye
+    m = p[..., :3, :3].transpose(-1, -2) @ r[..., :3, :3]
+    trace = m.diagonal(dim1=-2, dim2=-1).sum(-1)
+    skew = torch.stack([m[..., 2, 1] - m[..., 1, 2],
+                        m[..., 0, 2] - m[..., 2, 0],
+                        m[..., 1, 0] - m[..., 0, 1]], dim=-1)
+    rot = torch.atan2(torch.linalg.vector_norm(skew, dim=-1) / 2,
+                      (trace - 1) / 2)
+    tp, tq = p[..., :3, 3], r[..., :3, 3]
+    norm = torch.linalg.vector_norm(tq, dim=-1)
+    keep = norm > 1e-3 * norm.max()
+    cross = torch.linalg.vector_norm(torch.linalg.cross(tp, tq), dim=-1)
+    direction = torch.atan2(cross, (tp * tq).sum(-1))[keep]
+    return {"pose_rot_gap": math.degrees(float(rot.abs().max())),
+            "pose_dir_gap": math.degrees(float(direction.max()))
+            if direction.numel() else 0.0}
+
+
 def serve_numbers(prog: dict, ref: dict) -> dict:
-    tiles = gauss = poses = 0.0
+    """The worst sampled request's render (its tile means), Gaussians (the
+    largest field's gap, and each field's own: `<field>_gap`) and poses
+    (the relative gap less the identity, and `pose_angles`)."""
+    out = dict.fromkeys(("image_tile_gap", "gaussian_gap", "pose_gap",
+                         "pose_rot_gap", "pose_dir_gap")
+                        + tuple(f"{k}_gap" for k in GAUSSIAN_FIELDS), 0.0)
     for i, r in ref.items():
         p = prog.get(i)
         if p is None:   # a sampled request that never came
-            return {"image_tile_gap": math.inf, "gaussian_gap": math.inf,
-                    "pose_gap": math.inf}
-        tiles = max(tiles, rel(tile_means(p["image"]), tile_means(r["image"])))
-        f = forward_numbers(p, r)
-        gauss = max(gauss, f["gaussian_gap"])
-        poses = max(poses, f["pose_gap"])
-    return {"image_tile_gap": tiles, "gaussian_gap": gauss,
-            "pose_gap": poses}
+            return dict.fromkeys(out, math.inf)
+        gaps = {"image_tile_gap": rel(tile_means(p["image"]),
+                                      tile_means(r["image"])),
+                **forward_numbers(p, r),
+                **pose_angles(p["poses"], r["poses"]),
+                **{f"{k}_gap": rel(p["gaussians"][k], r["gaussians"][k])
+                   for k in GAUSSIAN_FIELDS}}
+        out = {k: max(v, gaps[k]) for k, v in out.items()}
+    return out
 
 
 def serve_diagnostics(prog: dict, ref: dict) -> dict:
@@ -473,16 +567,22 @@ def run_train(cell: Cell, seed: int, seconds: float, trace: bool, device,
         window_peak = torch.cuda.max_memory_allocated(device)
         peak = max(peak, window_peak)
     spans = {"step": step_s}
-    tr_read = None
+    tr_read, captures = None, None
     if trace:
-        tr_read, counts = traced(device, tr["trace_items"], lambda k: step(
-            state, batches[(i + k) % len(batches)]), "step")
-        launches = counts
+        item, captures = capturing(
+            enc, len(tr["context_offsets"]),
+            lambda k: step(state, batches[(i + k) % len(batches)]),
+            lambda k: batches[(i + k) % len(batches)]["target"])
+        tr_read, launches = traced(device, tr["trace_items"], item, "step")
     readings = Readings("train", cfg, tr, setup_s, window_s, done,
                         done * b, [], spans, flops(cell), window_peak,
                         launches, tr_read)
     del step, state, enc, lp, optimizer, batches, m
     free(device)
+    if trace:
+        readings.raster = count_raster(cell, captures, log)
+        del captures
+        free(device)
     ref = reference_train(cell, seed, device, microbatch or b)
     return Outcome(readings, done + failed, failed, peak,
                    train_numbers(prog, ref), {"microbatch": microbatch or b,
@@ -528,11 +628,10 @@ def kept_batch(gaussians, poses, idx) -> dict:
     """A forward's outputs on the host: each view's pose less the identity
     (its motion from view 0) and the Gaussians at the sampled indices,
     for every row of the batch."""
-    fields = ("means", "covariances", "harmonics", "opacities")
     eye = torch.eye(4, device=poses.device)
     return {"poses": (poses.detach().float() - eye).cpu(),
             "gaussians": {k: getattr(gaussians, k).detach()[:, idx]
-                          .float().cpu() for k in fields}}
+                          .float().cpu() for k in GAUSSIAN_FIELDS}}
 
 
 def kept(gaussians, poses, image, idx) -> dict:
@@ -635,16 +734,25 @@ def run_serve(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         window_peak = torch.cuda.max_memory_allocated(device)
         peak = max(peak, window_peak)
-    tr_read = None
+    tr_read, captures = None, None
     if trace:
-        tr_read, launches = traced(
-            device, tr["trace_items"],
-            lambda k: serve(i + k, {"encoder": [], "decoder": []}), "request")
+        def target(k):
+            t = requests[(i + k) % len(requests)]["target"]
+            return {n: t[n][None] for n in ("intrinsics", "near")}
+
+        item, captures = capturing(
+            enc, len(tr["context_offsets"]),
+            lambda k: serve(i + k, {"encoder": [], "decoder": []}), target)
+        tr_read, launches = traced(device, tr["trace_items"], item, "request")
     readings = Readings("serve", cfg, tr, setup_s, window_s, done, done, lat,
                         spans or {}, flops(cell), window_peak, launches,
                         tr_read)
     del enc, requests
     free(device)
+    if trace:
+        readings.raster = count_raster(cell, captures, log)
+        del captures
+        free(device)
     ref = reference_serve(cell, seed, device, sample)
     return Outcome(readings, i, failed, peak, serve_numbers(prog, ref),
                    serve_diagnostics(prog, ref))

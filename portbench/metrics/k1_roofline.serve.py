@@ -1,18 +1,18 @@
-"""K1's share of its roofline, in %: the least time of its launches in the
-traced segment (each Gaussian's 40-byte row read once and the output
-written once, at the HBM rate; `portbench/roofline.py`) over K1's device
-time by name."""
+"""K1's share of its roofline, in %: the least time of K1's launches in the
+traced segment, one a target camera of each request (the larger of its
+bytes, each distinct 40-byte Gaussian row that some tile's front-to-back
+walk reaches read once, 4 bytes a tile entry walked and the output
+written once, at the HBM rate, and of its operations, 25 a blended
+pixel-entry pair at the FP32 rate; `portbench/raster_work.py`,
+`roofline.raster_least_s`), over those launches' device time by name.
+The walk is counted on each traced request's own Gaussians and predicted
+target pose after the segment.  Nothing is read without K1 launches, or
+where the segment's launches are not the cameras counted."""
 
 from portbench import roofline
 
 
 def read(r):
-    if r.kind != "serve" or r.trace is None:
+    if r.kind != "serve":
         return None
-    seconds, n = r.trace.time_by_name(roofline.KERNELS["k1"])
-    if not n or seconds <= 0:
-        return None
-    tr = r.traffic
-    g = len(tr["context_offsets"]) * tr["image_size"] ** 2
-    least = n * roofline.k1_bytes(g, tr["image_size"]) / roofline.PEAK_BYTES
-    return 100.0 * least / seconds
+    return roofline.raster_share(r, "k1")

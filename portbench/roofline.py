@@ -4,13 +4,20 @@ Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its 700 W
 power limit): a card set below that limit runs slower under load, so
 `power_limit` is printed beside every reading.  The kernel counts are
 the bound formulas kept under the port's kernel table in PERF.md, from
-the shapes the benchmark hands in:
+the shapes and counts the benchmark hands in:
 
-  * K1 (`composite_forward_kernel`): each input Gaussian's 40-byte
-    projected row read once and the (tiles, 256, 8) float32 output
-    written once, at the HBM rate;
-  * K2 (`composite_backward_kernel`): those rows and K1's output and its
-    cotangent read once, a 40-byte gradient row a Gaussian written once;
+  * K1 (`composite_forward_kernel`): the work a launch must do on the
+    data it is given (`raster_work.py`), as the larger of two times:
+    bytes (each distinct 40-byte projected row that some tile's
+    front-to-back walk reaches read once, a 4-byte index for each tile
+    entry walked, and the (tiles, 256, 8) float32 output written once,
+    at the HBM rate) and operations (`K1_PAIR_OPS` for each pixel-entry
+    pair the walk blends, at the FP32 rate).  A lower bound on both: no
+    sound kernel reads over 100% of it;
+  * K2 (`composite_backward_kernel`): bytes, those rows and indices, K1's
+    output and its cotangent read once and a 40-byte gradient row
+    written for each row reached; operations, `K2_PAIR_OPS` a blended
+    pair;
   * K5's forward (`flash_forward_kernel`): 4 b h n_q n_k d operations at
     the bf16 tensor-core rate, for every unmasked self-attention of the
     flagship's backbone with at least `FLASH_MIN_KV` keys.
@@ -26,8 +33,14 @@ PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12    # outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s
 ROW_BYTES = 40        # K1/K2's packed row: 10 float32 fields
+ENTRY_BYTES = 4       # a tile entry: the int32 row index
 TILE = 16
 OUT_FIELDS = 8        # K1's output per pixel
+# FP32 operations of a blended (pixel, entry) pair, as the kernel table
+# counts them (`chip_smoke.py`: K1 14 to evaluate the pair and 11 to
+# blend it; K2 the same 14 and 51 for the gradient and its sums).
+K1_PAIR_OPS = 14 + 11
+K2_PAIR_OPS = 14 + 51
 FLASH_MIN_KV = 4096   # keys at which the port's self-attention takes K5
 
 KERNELS = {"k1": "composite_forward_kernel",
@@ -52,12 +65,46 @@ def _out_bytes(hw: int) -> int:
     return tiles * TILE * TILE * OUT_FIELDS * 4
 
 
-def k1_bytes(gaussians: int, hw: int) -> int:
-    return gaussians * ROW_BYTES + _out_bytes(hw)
+def k1_bytes(rows: int, entries: int, hw: int) -> int:
+    """One K1 launch: `rows` distinct rows reached, `entries` walked."""
+    return rows * ROW_BYTES + entries * ENTRY_BYTES + _out_bytes(hw)
 
 
-def k2_bytes(gaussians: int, hw: int) -> int:
-    return 2 * gaussians * ROW_BYTES + 2 * _out_bytes(hw)
+def k2_bytes(rows: int, entries: int, hw: int) -> int:
+    """One K2 launch over the same walk: rows in and gradient rows out,
+    the indices, K1's output and its cotangent."""
+    return 2 * rows * ROW_BYTES + entries * ENTRY_BYTES + 2 * _out_bytes(hw)
+
+
+RASTER = {"k1": (k1_bytes, K1_PAIR_OPS), "k2": (k2_bytes, K2_PAIR_OPS)}
+
+
+def raster_least_s(kernel: str, rows: int, entries: int, pairs: int,
+                   hw: int) -> float:
+    """The least time of one `kernel` ("k1" or "k2") launch whose walk
+    reaches `rows` distinct rows over `entries` tile entries and blends
+    `pairs` pixel-entry pairs: the larger of its bytes at the HBM rate
+    and its operations at the FP32 rate."""
+    bytes_of, pair_ops = RASTER[kernel]
+    return max(bytes_of(rows, entries, hw) / PEAK_BYTES,
+               pairs * pair_ops / PEAK_FP32)
+
+
+def raster_share(r, kernel: str) -> float | None:
+    """The share of its roofline, in %, of `kernel` ("k1" or "k2") over
+    the traced segment: the least time of its launches, from the walk
+    counted on each item's own Gaussians and cameras (`Readings.raster`,
+    (rows, entries, pairs) a launch), over their device time.  Nothing
+    where there is no trace or count, or where the segment's launches
+    are not the ones counted."""
+    if r.trace is None or not r.raster:
+        return None
+    seconds, n = r.trace.time_by_name(KERNELS[kernel])
+    if n != len(r.raster) or seconds <= 0:
+        return None
+    hw = r.traffic["image_size"]
+    least = sum(raster_least_s(kernel, *work, hw) for work in r.raster)
+    return 100.0 * least / seconds
 
 
 def k5_forward_shapes(config: dict, traffic: dict) -> list[tuple]:

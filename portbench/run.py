@@ -80,7 +80,7 @@ def main(argv=None) -> int:
 
 def report(cell, outcome, trace: bool, device: dict) -> int:
     """Print the numbers compared and the result's line; returns 0."""
-    from portbench import harness
+    from portbench import harness, roofline, view_masked
 
     r = outcome.readings
     log(f"launches a {'step' if r.kind == 'train' else 'request'}: "
@@ -100,6 +100,10 @@ def report(cell, outcome, trace: bool, device: dict) -> int:
         device["busy_s"] = r.trace.busy_s
         device["window_s"] = r.trace.window_s
         log(f"device activity kinds: {json.dumps(r.trace.activity_kinds)}")
+        kernels = {**roofline.KERNELS, "vm_fwd": view_masked.KERNEL}
+        log("kernels' device seconds and launches in the traced segment: "
+            + json.dumps({k: r.trace.time_by_name(n)
+                          for k, n in kernels.items()}))
         result["breakdown"] = r.trace.breakdown()
     result["check"] = check
     for name, c in check.items():

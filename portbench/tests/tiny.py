@@ -28,6 +28,8 @@ TINY_ENCODER = {
         "camera_head": dict(dim_in=64, trunk_depth=1, num_heads=2),
         "sh_degree": 1},
 }
+# SPFSplat v1 at the flagship's tiny widths (the same backbone keys).
+TINY_ENCODER["spfsplat-re10k"] = TINY_ENCODER["spfsplatv2-re10k"]
 TINY_TRAFFIC = {"train": dict(batch=4, pool=4, trace_items=1,
                               gaussian_sample=64),
                 "serve": dict(pool=3, warmup=1, check_within=4,
@@ -47,7 +49,7 @@ def tiny_cell(workload: str, limits: dict | None = None) -> harness.Cell:
     cell = harness.load_cell(workload)
     cell.config = merge(cell.config,
                         {"encoder": TINY_ENCODER[cell.config_name]})
-    patch = 16 if cell.config_name == "spfsplatv2-re10k" else 14
+    patch = 14 if cell.config_name == "spfsplatv2l-re10k" else 16
     cell.traffic = merge(cell.traffic, {
         **TINY_TRAFFIC[cell.traffic["kind"]], "image_size": 2 * patch})
     cell.traffic["decoder"]["rasterizer"]["depth_key"] = "rank"
